@@ -1,0 +1,326 @@
+"""The lane-batched engine (PyTorch port of ``pycatkin_tpu/engine.py``).
+
+Composition of the kernel layers for a batch of conditions:
+
+    free_energies      <- ops.thermo + scaling relations
+    reaction_energies  <- stoichiometric sums
+    rate_constants     <- ops.rates dispatch
+    steady_state       <- solvers.newton (single-attempt PTC)
+    steady_jacobian    <- torch.func.jacfwd of the dynamic residual
+    tof / activity     <- net rates of the selected steps
+
+A host :class:`ModelSpec` is moved to the device once by :func:`bind`;
+every function then takes that :class:`DeviceSpec` and a
+:class:`Conditions` whose fields carry a leading lane dimension
+``[L, ...]`` (see :func:`conditions_to`). No arithmetic crosses lanes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .constants import LOG_H_OVER_KB, R, bartoPa, eVtokJ, kB
+from .frontend.spec import REACTOR_CSTR, Conditions, ModelSpec
+from .ops import linalg, network, rates, thermo
+from .solvers import newton
+from .solvers.newton import SolverOptions, SteadyStateResults
+
+eVtoJmol = eVtokJ * 1.0e3
+
+_INDEX_FIELDS = ("scl_idx", "reac_idx", "prod_idx", "dynamic_indices",
+                 "adsorbate_indices", "gas_indices")
+
+
+class DeviceSpec:
+    """A :class:`ModelSpec` on one device: every float array as a float64
+    tensor, every index array as an int64 tensor, scalar and tuple
+    fields as they are, the host spec as ``.host``; plus the derived
+    tensors the solver needs (``dS_PR = SP - SR``, ``dS_TR = ST - SR``,
+    ``groups_dyn``, ``dyn_src``). ``dyn_mask`` (``[n_dyn]``, optional)
+    marks real dynamic slots; pad slots get the decoupled residual
+    ``F = -x``."""
+
+    def __init__(self, spec: ModelSpec, device, dyn_mask=None):
+        import dataclasses
+        self.host = spec
+        self.device = torch.device(device)
+        for f in dataclasses.fields(spec):
+            v = getattr(spec, f.name)
+            if isinstance(v, np.ndarray):
+                dt = torch.int64 if f.name in _INDEX_FIELDS else \
+                    torch.float64
+                v = torch.as_tensor(np.asarray(v), dtype=dt,
+                                    device=self.device)
+            setattr(self, f.name, v)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                      device=self.device)
+        self.dS_PR = t(spec.SP - spec.SR)
+        self.dS_TR = t(spec.ST - spec.SR)
+        dyn = np.asarray(spec.dynamic_indices)
+        self.dyn = self.dynamic_indices
+        self.groups_dyn = t(np.asarray(spec.groups)[:, dyn])
+        # y = cat([y_base, x])[dyn_src]: composes the full state from the
+        # dynamic vector without an in-place scatter (vmap/jacfwd-safe).
+        src = np.arange(spec.n_species)
+        src[dyn] = spec.n_species + np.arange(dyn.size)
+        self.dyn_src = torch.as_tensor(src, dtype=torch.int64,
+                                       device=self.device)
+        self.dyn_mask = None if dyn_mask is None else t(dyn_mask)
+        self.has_udar = spec.has_udar
+        self.has_gfree = spec.has_gfree
+        self.n_species = spec.n_species
+        self.n_reactions = spec.n_reactions
+
+
+def bind(spec: ModelSpec, device, dyn_mask=None) -> DeviceSpec:
+    """Move ``spec`` to ``device`` (see :class:`DeviceSpec`)."""
+    return DeviceSpec(spec, device, dyn_mask=dyn_mask)
+
+
+def conditions_to(cond: Conditions, device) -> Conditions:
+    """Every field of ``cond`` as a float64 tensor on ``device``."""
+    return Conditions(*(torch.as_tensor(np.asarray(v, dtype=np.float64),
+                                        dtype=torch.float64, device=device)
+                        for v in cond))
+
+
+class FreeEnergies(NamedTuple):
+    gelec: torch.Tensor   # [L, n_s] electronic (scaling relations resolved)
+    gfree: torch.Tensor   # [L, n_s] total free energy
+    gvibr: torch.Tensor
+    gtran: torch.Tensor
+    grota: torch.Tensor
+
+
+class ReactionEnergies(NamedTuple):
+    dErxn: torch.Tensor   # [L, n_r] J/mol
+    dGrxn: torch.Tensor
+    dEa_fwd: torch.Tensor
+    dGa_fwd: torch.Tensor
+    dEa_rev: torch.Tensor
+    dGa_rev: torch.Tensor
+
+
+def free_energies(ds: DeviceSpec, cond: Conditions) -> FreeEnergies:
+    """Electronic + free energies of every species at (T, p) [eV]."""
+    gv, gt, gr = thermo.thermal_contributions(
+        cond.T, cond.p,
+        freq=ds.freq, fmask=ds.fmask, mass=ds.mass, sigma=ds.sigma,
+        inertia=ds.inertia, is_gas=ds.is_gas, is_linear=ds.is_linear,
+        mix=ds.mix,
+        gvibr0=ds.gvibr0, gvibr_mask=ds.gvibr_mask,
+        gtran0=ds.gtran0, gtran_mask=ds.gtran_mask,
+        grota0=ds.grota0, grota_mask=ds.grota_mask)
+
+    e_full = cond.gelec
+    if ds.scl_idx.numel():
+        # Linear scaling relations, solved as a small linear system so
+        # scaling states may reference each other.
+        b = ds.scl_b + e_full @ ds.scl_We.T + cond.uE_rxn @ ds.scl_WuE.T
+        n_sc = ds.scl_idx.numel()
+        A = torch.eye(n_sc, dtype=torch.float64, device=ds.device) - ds.scl_Ws
+        A = A.expand(b.shape[:-1] + (n_sc, n_sc)).contiguous()
+        e_scl = linalg.scaling_solve(A, b)
+        e_full = e_full.index_copy(-1, ds.scl_idx, e_scl)
+
+    mods = ds.add0 + cond.eps
+    g0 = e_full + gv + gt + gr + mods
+    if ds.has_udar:
+        corr = (e_full @ ds.udar_Ce.T + g0 @ ds.udar_Cg.T
+                + cond.uE_rxn @ ds.udar_CuE.T + cond.uG_rxn @ ds.udar_CuG.T)
+        g = torch.where(ds.udar_mask > 0, e_full + corr + mods, g0)
+    else:
+        g = g0
+    if ds.has_gfree:
+        g = torch.where(ds.gfree_mask > 0, ds.gfree0 + mods, g)
+    return FreeEnergies(gelec=e_full, gfree=g, gvibr=gv, gtran=gt, grota=gr)
+
+
+def reaction_energies(ds: DeviceSpec, cond: Conditions,
+                      fe: FreeEnergies | None = None) -> ReactionEnergies:
+    """Reaction energies and barriers [J/mol]. User-defined reactions take
+    their energies from the conditions; TS-less reactions have zero
+    barriers."""
+    if fe is None:
+        fe = free_energies(ds, cond)
+    e, g = fe.gelec, fe.gfree
+    dE = e @ ds.dS_PR.T * eVtoJmol
+    dG = g @ ds.dS_PR.T * eVtoJmol
+    dE = torch.where(cond.u_rxn_mask > 0, cond.uE_rxn * eVtoJmol, dE)
+    dG = torch.where(cond.u_rxn_mask > 0, cond.uG_rxn * eVtoJmol, dG)
+    dEa_ts = e @ ds.dS_TR.T * eVtoJmol * ds.has_TS
+    dGa_ts = g @ ds.dS_TR.T * eVtoJmol * ds.has_TS
+    dEa = torch.where(ds.is_user > 0,
+                      cond.uEa * eVtoJmol * cond.u_bar_mask, dEa_ts)
+    dGa = torch.where(ds.is_user > 0,
+                      cond.uGa * eVtoJmol * cond.u_bar_mask, dGa_ts)
+    return ReactionEnergies(dErxn=dE, dGrxn=dG, dEa_fwd=dEa, dGa_fwd=dGa,
+                            dEa_rev=dEa - dE, dGa_rev=dGa - dG)
+
+
+def rate_constants(ds: DeviceSpec, cond: Conditions,
+                   re: ReactionEnergies | None = None):
+    """``(kf, kr, Keq)`` for every reaction, ``[L, n_r]`` each."""
+    if re is None:
+        re = reaction_energies(ds, cond)
+    act = cond.is_activated
+    return rates.rate_constants(
+        cond.T,
+        dGrxn=re.dGrxn, dErxn=re.dErxn, dGa_fwd=re.dGa_fwd,
+        is_arr=act,
+        is_ads=ds.is_ads * (1.0 - act),
+        is_des=ds.is_des * (1.0 - act),
+        is_ghost=ds.is_ghost,
+        reversible=ds.reversible,
+        area=ds.area, gas_mass=ds.gas_mass, gas_sigma=ds.gas_sigma,
+        gas_inertia=ds.gas_inertia, gas_polyatomic=ds.gas_polyatomic,
+        kscale=cond.kscale,
+        collision_des=(ds.desorption_model == "collision"))
+
+
+class Reactor(NamedTuple):
+    """Per-lane reactor terms of :func:`network.reactor_rhs_and_scale`."""
+    sigma_over_bar: torch.Tensor   # [L]
+    inflow: torch.Tensor           # [L, n_s]
+
+
+def reactor_terms(ds: DeviceSpec, cond: Conditions) -> Reactor:
+    if ds.reactor_type == REACTOR_CSTR:
+        sigma = kB * cond.T * ds.catalyst_area / ds.volume
+        return Reactor(sigma / bartoPa, cond.inflow)
+    return Reactor(torch.zeros_like(cond.T), cond.inflow)
+
+
+def _static(ds: DeviceSpec) -> dict:
+    return dict(reac_idx=ds.reac_idx, prod_idx=ds.prod_idx,
+                is_gas=ds.is_gas, stoich=ds.stoich,
+                is_adsorbate=ds.is_adsorbate, reactor_type=ds.reactor_type,
+                inv_tau=(1.0 / ds.residence_time
+                         if ds.reactor_type == REACTOR_CSTR else 0.0))
+
+
+def compose_state(ds: DeviceSpec, y_base, x):
+    """The full state: ``y_base`` with its dynamic entries set to ``x``."""
+    return torch.cat([y_base, x], dim=-1)[..., ds.dyn_src]
+
+
+def dynamic_fscale(ds: DeviceSpec, x, kf, kr, y_base, sigma_over_bar,
+                   inflow):
+    """``(F, gross)`` over the dynamic indices at the dynamic vector
+    ``x``: the residual plus the per-species gross-flux scale. Works for
+    any leading lane shape (the batched solver and the per-lane function
+    that ``jacfwd`` differentiates share it). Pad slots of
+    ``ds.dyn_mask`` get ``F = -x`` and ``gross = 1``."""
+    y = compose_state(ds, y_base, x)
+    F, gross = network.reactor_rhs_and_scale(
+        y, kf, kr, sigma_over_bar=sigma_over_bar, inflow=inflow,
+        **_static(ds))
+    F, gross = F[..., ds.dyn], gross[..., ds.dyn]
+    if ds.dyn_mask is not None:
+        F = torch.where(ds.dyn_mask > 0, F, -x)
+        gross = torch.where(ds.dyn_mask > 0, gross, torch.ones_like(gross))
+    return F, gross
+
+
+def residual_jacobian(ds: DeviceSpec, x, kf, kr, y_base, sigma_over_bar,
+                      inflow):
+    """``[L, n_dyn, n_dyn]`` Jacobian of the dynamic residual:
+    ``torch.func.jacfwd`` of the per-lane residual under
+    ``torch.func.vmap`` over lanes."""
+    def residual_one(x1, kf1, kr1, yb1, sob1, inf1):
+        return dynamic_fscale(ds, x1, kf1, kr1, yb1, sob1, inf1)[0]
+    return torch.func.vmap(torch.func.jacfwd(residual_one))(
+        x, kf, kr, y_base, sigma_over_bar, inflow)
+
+
+class Closures(NamedTuple):
+    """The batched residual-and-scale and Jacobian of one lane batch."""
+    fscale: object
+    jac: object
+    y_base: torch.Tensor
+
+
+def closures(ds: DeviceSpec, cond: Conditions, kf, kr) -> Closures:
+    rt = reactor_terms(ds, cond)
+    y_base = cond.y0
+    args = (kf, kr, y_base, rt.sigma_over_bar, rt.inflow)
+    return Closures(
+        fscale=lambda x: dynamic_fscale(ds, x, *args),
+        jac=lambda x: residual_jacobian(ds, x, *args),
+        y_base=y_base)
+
+
+def steady_state(ds: DeviceSpec, cond: Conditions, x0=None, key=None,
+                 opts: SolverOptions = SolverOptions()
+                 ) -> SteadyStateResults:
+    """Single-attempt steady-state solve of every lane over the dynamic
+    indices (gas clamped for the infinite-dilution reactor).
+
+    ``key`` is unused: the single-attempt fast pass draws no random
+    numbers (random restarts belong to the multi-attempt rescue ladder,
+    not ported yet). ``x0`` defaults to the dynamic entries of
+    ``cond.y0``."""
+    del key
+    kf, kr, _ = rate_constants(ds, cond)
+    cl = closures(ds, cond, kf, kr)
+    if x0 is None:
+        x0 = cl.y_base[..., ds.dyn]
+    (x, success, res, iters, attempts, rate_ok, pos_ok, sums_ok,
+     dt_exit, chords) = newton.solve_steady(
+        cl.fscale, cl.jac, x0.contiguous(), ds.groups_dyn, opts)
+    return SteadyStateResults(
+        x=compose_state(ds, cl.y_base, x), success=success, residual=res,
+        iterations=iters, attempts=attempts, rate_ok=rate_ok,
+        pos_ok=pos_ok, sums_ok=sums_ok, dt_exit=dt_exit, chords=chords)
+
+
+def steady_jacobian(ds: DeviceSpec, cond: Conditions, x_dyn):
+    """Jacobian of the dynamic residual at ``x_dyn`` ``[L, n_dyn]``."""
+    kf, kr, _ = rate_constants(ds, cond)
+    return closures(ds, cond, kf, kr).jac(x_dyn)
+
+
+def tof(ds: DeviceSpec, cond: Conditions, y, tof_mask):
+    """Turnover frequency per lane: the summed net rates of the steps
+    selected by ``tof_mask`` ``[n_r]`` at the full state ``y``."""
+    kf, kr, _ = rate_constants(ds, cond)
+    fwd, rev = network.reaction_rates(y, kf, kr, reac_idx=ds.reac_idx,
+                                      prod_idx=ds.prod_idx,
+                                      is_gas=ds.is_gas)
+    return torch.sum(tof_mask * (fwd - rev), dim=-1)
+
+
+def activity_from_tof(tof_value, T):
+    """Activity [eV] = ln(h*|TOF|/kB*T) * RT, assembled in log space; a
+    negative TOF enters by magnitude (the sweep flags its sign), an
+    exactly-zero TOF gives -inf."""
+    log_term = torch.log(torch.abs(tof_value)) + LOG_H_OVER_KB \
+        - torch.log(T)
+    return (log_term * (R * T)) * 1.0e-3 / eVtokJ
+
+
+def tof_mask_for(spec: ModelSpec, tof_terms) -> np.ndarray:
+    mask = np.zeros(spec.n_reactions)
+    for t in tof_terms:
+        mask[spec.rindex(t)] = 1.0
+    return mask
+
+
+def closed_form_jacobian(ds: DeviceSpec, cond: Conditions, x_dyn,
+                         kf: Optional[torch.Tensor] = None,
+                         kr: Optional[torch.Tensor] = None):
+    """The dynamic Jacobian from the closed-form reactor Jacobian
+    (:func:`network.reactor_jacobian`) restricted to the dynamic block --
+    the independent oracle that :func:`steady_jacobian` is tested
+    against."""
+    if kf is None:
+        kf, kr, _ = rate_constants(ds, cond)
+    rt = reactor_terms(ds, cond)
+    y = compose_state(ds, cond.y0, x_dyn)
+    J = network.reactor_jacobian(y, kf, kr,
+                                 sigma_over_bar=rt.sigma_over_bar,
+                                 inflow=rt.inflow, **_static(ds))
+    return J[..., ds.dyn, :][..., ds.dyn]

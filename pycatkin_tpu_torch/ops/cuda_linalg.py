@@ -1,0 +1,310 @@
+"""Batched LU kernels for the direction and certificate solves, with their
+plain PyTorch versions.
+
+Port of ``pycatkin_tpu/ops/pallas_linalg.py``. The three Pallas kernels
+there become hand-written CUDA kernels for Hopper (``csrc/linalg.cu``):
+
+==============  ====================================================
+wrapper         replaces
+==============  ====================================================
+lu_factor       ``pallas_linalg.lu_factor`` (``_lu_kernel`` +
+                ``_factor_body``)
+lu_solve        ``pallas_linalg.lu_solve`` (``_lu_solve_kernel`` +
+                ``_permute_rhs`` + ``_solve_body``)
+factor_solve    ``pallas_linalg.factor_solve`` (``_factor_solve_kernel``)
+==============  ====================================================
+
+Shapes carry an explicit lane dimension: ``A`` is ``[L, n, n]``, a
+right-hand side ``[L, n]`` or ``[L, n, k]``, ``perm`` ``[L, n]`` int32.
+Every wrapper checks device, dtype (float64), shape and contiguity, then
+sends a CPU tensor to the plain version (``*_ref``, the same arithmetic
+in plain PyTorch) and a CUDA tensor to the kernel. A CUDA tensor is
+never served by the plain version: a kernel that cannot launch raises.
+Each launch adds one to :data:`LAUNCHES`.
+
+The kernels are compiled from the package's own source on first use
+(``nvcc`` for ``sm_90a`` into ``build/pycatkin_tpu_torch/`` beside the
+package, keyed by a hash of the source) and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+#: Largest n the kernels serve: a lane's matrix must fit one block's
+#: shared memory. n = 512 needs the blocked design (ROADMAP, Queue B).
+MAX_N = 128
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+LAUNCHES = {"lu_factor": 0, "lu_solve": 0, "factor_solve": 0}
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "linalg.cu"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
+    / "pycatkin_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIB = None
+
+
+def reset_launches() -> None:
+    """Set every launch counter to 0."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels are built from source on first use")
+
+
+def library_path() -> Path:
+    """Where the built kernel library for the current source lives."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"linalg_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/linalg.cu`` unless a library built from the same
+    source and flags exists; returns its path. ``verbose`` prints the
+    compiler's resource usage (``-Xptxas -v``)."""
+    so = library_path()
+    if so.exists() and not verbose:
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr.strip())
+    os.replace(tmp, so)
+    return so
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.pk_lu_factor.argtypes = [vp, vp, vp, ll, ci, vp]
+        lib.pk_lu_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
+        lib.pk_factor_solve.argtypes = [vp, vp, vp, ll, ci, ci, vp]
+        lib.pk_lu_factor_smem.argtypes = [ci]
+        lib.pk_lu_solve_smem.argtypes = [ci, ci]
+        lib.pk_factor_solve_smem.argtypes = [ci, ci]
+        for fn in (lib.pk_lu_factor, lib.pk_lu_solve, lib.pk_factor_solve,
+                   lib.pk_max_n):
+            fn.restype = ci
+        for fn in (lib.pk_lu_factor_smem, lib.pk_lu_solve_smem,
+                   lib.pk_factor_solve_smem):
+            fn.restype = ll
+        if lib.pk_max_n() != MAX_N:
+            raise RuntimeError("csrc/linalg.cu and cuda_linalg.MAX_N "
+                               "disagree")
+        _LIB = lib
+    return _LIB
+
+
+# ----------------------------------------------------------------------
+# argument checks
+def _check_matrix(name, A):
+    if A.dtype != torch.float64:
+        raise TypeError(f"{name}: float64 only, got {A.dtype}")
+    if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"{name}: expected [lanes, n, n], got "
+                         f"{tuple(A.shape)}")
+    if not A.is_contiguous():
+        raise ValueError(f"{name}: matrix must be contiguous")
+
+
+def _check_rhs(name, A, b):
+    if b.dtype != torch.float64:
+        raise TypeError(f"{name}: float64 only, got {b.dtype}")
+    if b.device != A.device:
+        raise ValueError(f"{name}: operands on {A.device} and {b.device}")
+    ok = (b.dim() in (2, 3) and b.shape[0] == A.shape[0]
+          and b.shape[1] == A.shape[-1])
+    if not ok:
+        raise ValueError(f"{name}: right-hand side must be [lanes, n] or "
+                         f"[lanes, n, k], got {tuple(b.shape)} for "
+                         f"{tuple(A.shape)}")
+    if not b.is_contiguous():
+        raise ValueError(f"{name}: right-hand side must be contiguous")
+
+
+def _route(name, A) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version
+    (CPU tensor); raises for anything else."""
+    if A.device.type == "cpu":
+        return False
+    if A.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {A.device}")
+    if A.shape[-1] > MAX_N:
+        raise NotImplementedError(
+            f"{name}: n = {A.shape[-1]} > {MAX_N} needs the blocked "
+            "kernel (ROADMAP, Queue B item 4: bucket 512)")
+    return True
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {err}")
+
+
+def _smem_check(name, need):
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    # Hopper's opt-in limit (227 KB) where the property is not exposed.
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    if need > limit:
+        raise ValueError(f"{name}: a lane needs {need} B of shared memory, "
+                         f"the card allows {limit} B per block")
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions
+def lu_factor_ref(A):
+    """Partial-pivoted LU of every lane, in plain PyTorch: the arithmetic
+    of ``linalg._lu_step`` / the Pallas ``_factor_body`` (first row of
+    max |a| at or below the diagonal as pivot, multipliers stored below
+    the diagonal). Returns ``(LU [L, n, n], perm [L, n] int32)``."""
+    A = A.clone()
+    L, n, _ = A.shape
+    lanes = torch.arange(L, device=A.device)
+    perm = torch.arange(n, device=A.device).repeat(L, 1)
+    for k in range(n - 1):
+        p = k + torch.argmax(torch.abs(A[:, k:, k]), dim=1)
+        rk, rp = A[lanes, k].clone(), A[lanes, p].clone()
+        A[lanes, k] = rp
+        A[lanes, p] = rk
+        pk, pp = perm[lanes, k].clone(), perm[lanes, p].clone()
+        perm[lanes, k] = pp
+        perm[lanes, p] = pk
+        f = A[:, k + 1:, k] / A[:, k, k, None]
+        A[:, k + 1:, k + 1:] = (A[:, k + 1:, k + 1:]
+                                - f[:, :, None] * A[:, k, None, k + 1:])
+        A[:, k + 1:, k] = f
+    return A, perm.to(torch.int32)
+
+
+def lu_solve_ref(LU, perm, b):
+    """``b[perm]``, then the unit-lower forward and upper backward
+    row-dot recurrences of ``linalg.lu_solve`` / ``_solve_body``, in
+    plain PyTorch. ``b``: ``[L, n]`` or ``[L, n, k]``."""
+    vec = b.dim() == 2
+    y = b[:, :, None] if vec else b
+    n, k = y.shape[1], y.shape[2]
+    idx = perm.to(torch.int64)[:, :, None].expand(-1, -1, k)
+    y = torch.gather(y, 1, idx).clone()
+    for i in range(n):
+        s = (LU[:, i, :i, None] * y[:, :i]).sum(dim=1)
+        y[:, i] = y[:, i] - s
+    for i in range(n - 1, -1, -1):
+        s = (LU[:, i, i + 1:, None] * y[:, i + 1:]).sum(dim=1)
+        y[:, i] = (y[:, i] - s) / LU[:, i, i, None]
+    return y[:, :, 0] if vec else y
+
+
+def factor_solve_ref(A, b):
+    """Factor and solve in plain PyTorch (:func:`lu_factor_ref` then
+    :func:`lu_solve_ref`)."""
+    return lu_solve_ref(*lu_factor_ref(A), b)
+
+
+# ----------------------------------------------------------------------
+# wrappers
+def lu_factor(A):
+    """Partial-pivoted LU of every lane of ``A [L, n, n]`` float64.
+    Returns ``(LU, perm)`` in ``pallas_linalg.lu_factor``'s convention;
+    ``perm`` is int32."""
+    _check_matrix("lu_factor", A)
+    if not _route("lu_factor", A):
+        return lu_factor_ref(A)
+    L, n = A.shape[0], A.shape[-1]
+    LU = torch.empty_like(A)
+    perm = torch.empty((L, n), dtype=torch.int32, device=A.device)
+    if L == 0:
+        return LU, perm
+    lib = _lib()
+    with torch.cuda.device(A.device):
+        _smem_check("lu_factor", lib.pk_lu_factor_smem(n))
+        err = lib.pk_lu_factor(A.data_ptr(), LU.data_ptr(), perm.data_ptr(),
+                               L, n, _stream(A))
+    _raise_on("lu_factor", err)
+    LAUNCHES["lu_factor"] += 1
+    return LU, perm
+
+
+def lu_solve(LU, perm, b):
+    """Solve every lane given :func:`lu_factor` output; ``b`` is
+    ``[L, n]`` or ``[L, n, k]`` and ``x`` comes back in the same shape."""
+    _check_matrix("lu_solve", LU)
+    _check_rhs("lu_solve", LU, b)
+    if perm.dtype != torch.int32 or perm.shape != LU.shape[:2] \
+            or perm.device != LU.device or not perm.is_contiguous():
+        raise ValueError("lu_solve: perm must be a contiguous int32 "
+                         "[lanes, n] tensor on the matrix's device")
+    if not _route("lu_solve", LU):
+        return lu_solve_ref(LU, perm, b)
+    L, n = LU.shape[0], LU.shape[-1]
+    k = 1 if b.dim() == 2 else b.shape[2]
+    x = torch.empty_like(b)
+    if L == 0:
+        return x
+    lib = _lib()
+    with torch.cuda.device(LU.device):
+        _smem_check("lu_solve", lib.pk_lu_solve_smem(n, k))
+        err = lib.pk_lu_solve(LU.data_ptr(), perm.data_ptr(), b.data_ptr(),
+                              x.data_ptr(), L, n, k, _stream(LU))
+    _raise_on("lu_solve", err)
+    LAUNCHES["lu_solve"] += 1
+    return x
+
+
+def factor_solve(A, b):
+    """Factor and solve ``A x = b`` for every lane in one kernel; the
+    matrix stays in shared memory between the two passes. ``b`` is
+    ``[L, n]`` or ``[L, n, k]``."""
+    _check_matrix("factor_solve", A)
+    _check_rhs("factor_solve", A, b)
+    if not _route("factor_solve", A):
+        return factor_solve_ref(A, b)
+    L, n = A.shape[0], A.shape[-1]
+    k = 1 if b.dim() == 2 else b.shape[2]
+    x = torch.empty_like(b)
+    if L == 0:
+        return x
+    lib = _lib()
+    with torch.cuda.device(A.device):
+        _smem_check("factor_solve", lib.pk_factor_solve_smem(n, k))
+        err = lib.pk_factor_solve(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                  L, n, k, _stream(A))
+    _raise_on("factor_solve", err)
+    LAUNCHES["factor_solve"] += 1
+    return x

@@ -1,0 +1,83 @@
+"""The CUDA kernels on the card (marker ``cuda``; each test skips when no
+CUDA device is present). Run on a card with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest imports JAX, which a card-only
+machine need not have; this file imports neither JAX nor the JAX
+package)."""
+
+import numpy as np
+import pytest
+import torch
+
+from pycatkin_tpu_torch.ops import cuda_linalg as cl
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _systems(lanes, n, k, device, seed=0):
+    rng = np.random.default_rng(seed + n)
+    A = rng.standard_normal((lanes, n, n)) + 2.0 * n * np.eye(n)
+    for i in range(0, lanes, 3):
+        A[i] = A[i][rng.permutation(n)]
+    A[-1, :, n // 2] = 0.0                      # singular last lane
+    b = rng.standard_normal((lanes, n) if k is None else (lanes, n, k))
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
+    return t(A), t(b)
+
+
+@pytest.mark.parametrize("n", [1, 16, 21, 64, 128])
+@pytest.mark.parametrize("k", [None, 4], ids=["vec", "mat4"])
+def test_kernels_match_plain_versions_on_the_card(device, n, k):
+    A, b = _systems(65, n, k, device)
+    cl.reset_launches()
+    LU, perm = cl.lu_factor(A)
+    x = cl.lu_solve(LU, perm, b)
+    xf = cl.factor_solve(A, b)
+    torch.cuda.synchronize()
+    assert cl.LAUNCHES == {"lu_factor": 1, "lu_solve": 1, "factor_solve": 1}
+    LUr, permr = cl.lu_factor_ref(A)
+    xr = cl.lu_solve_ref(LUr, permr, b)
+    good = slice(0, 64)
+    assert torch.equal(perm[good], permr[good])
+    assert torch.equal(LU[good], LUr[good])
+    scale = float(xr[good].abs().max())
+    assert float((x[good] - xr[good]).abs().max()) <= 1e-12 * scale
+    assert float((xf[good] - xr[good]).abs().max()) <= 1e-12 * scale
+    assert not bool(torch.isfinite(x[-1]).all())
+    assert not bool(torch.isfinite(xf[-1]).all())
+
+
+def test_kernels_refuse_what_they_do_not_serve(device):
+    A, b = _systems(2, cl.MAX_N + 1, None, device)
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        cl.lu_factor(A)
+    with pytest.raises(TypeError, match="float64"):
+        cl.factor_solve(A[:, :4, :4].float().contiguous(), b[:, :4].float())
+
+
+def test_sweep_on_the_card_matches_the_cpu(device):
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+
+    spec, base = synthetic_spec(12, 14, seed=0)
+    conds = batch.broadcast_conditions(base, 16)._replace(
+        T=np.linspace(400.0, 800.0, 16))
+    mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
+    cl.reset_launches()
+    gpu = batch.fused_sweep(spec, conds, mask, device=device)
+    assert cl.LAUNCHES["lu_factor"] > 0 and cl.LAUNCHES["factor_solve"] > 0
+    cpu = batch.fused_sweep(spec, conds, mask, device="cpu")
+    for i in (1, 2, 3, 6, 8):
+        assert torch.equal(gpu[i].cpu(), cpu[i]), i
+    assert torch.equal(gpu[0].success.cpu(), cpu[0].success)
+    assert torch.allclose(gpu[0].x.cpu(), cpu[0].x, rtol=1e-5, atol=1e-12)
