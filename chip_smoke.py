@@ -23,14 +23,16 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    torch.profiler (device-busy share and the top device kernels).
 
 It prints one line per phase, a ``{"kernels": [...]}`` JSON line, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any failure
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. The
+kernels line has one row per kernel per path (``path`` is ``flagship``
+or ``certificate``): its ``launches`` are that path's own run's, and its
+times are taken at the shapes that path gives the kernel. Any failure
 raises and exits non-zero; without a CUDA card it exits 1 and prints no
 result.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -45,6 +47,11 @@ PEAK_FP64_FLOPS = 67.0e12
 PEAK_BYTES_PER_S = 3.35e12
 SIZES = (16, 21, 32, 64, 128)
 KERNEL_TOL = 1e-12
+FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
+CERT_LANES = 4096
+CHECK_LANES = 4096       # well-conditioned lanes per kernel check size
+SUBSET = 256             # flagship lanes re-run on the CPU
+REPS = 20                # timed calls per kernel
 
 
 def log(msg: str) -> None:
@@ -151,55 +158,56 @@ def check_kernels(cl, lanes: int, device) -> None:
             f"{errs['mat']:.2e}, singular lane non-finite")
 
 
-def time_kernels(cl, shapes: dict, launches: dict, reps: int, device):
-    """Phase 2b: each kernel at the sweep's shapes beside its plain
-    version and the matching torch.linalg call; returns the kernels
-    JSON rows."""
+def time_lu(cl, n: int, L: int, device) -> list:
+    """Phase 2b: ``lu_factor`` and ``lu_solve`` at ``L`` lanes of size
+    ``n`` (the last lane singular) beside their plain versions and the
+    matching torch.linalg calls; returns one row each."""
     import torch
-    rows = []
-    n, L = shapes["lu"]
-    A, b = test_matrices(L - 1, n, seed=1, device=device)
+    A, b = test_matrices(L - 1, n, seed=n, device=device)
     LU, perm = cl.lu_factor(A)
     LUr, permr = cl.lu_factor_ref(A)
     lu_err = float(torch.max(torch.abs(LU[:-1] - LUr[:-1])))
     assert torch.equal(perm[:-1], permr[:-1])
-    ms = cuda_ms(lambda: cl.lu_factor(A), reps)
-    plain = cuda_ms(lambda: cl.lu_factor_ref(A), max(2, reps // 10))
-    lib = cuda_ms(lambda: torch.linalg.lu_factor_ex(A), reps)
+    ms = cuda_ms(lambda: cl.lu_factor(A), REPS)
+    plain = cuda_ms(lambda: cl.lu_factor_ref(A), 2)
+    lib = cuda_ms(lambda: torch.linalg.lu_factor_ex(A), REPS)
     bms, by = bound(L * (2 * n * n * 8 + n * 4), L * lu_flops(n))
-    rows.append(dict(name="lu_factor", n=n, lanes=L, launches=launches[
-        "lu_factor"], max_abs_err=lu_err, ms=ms, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=lib))
+    rows = [dict(name="lu_factor", n=n, lanes=L, max_abs_err=lu_err, ms=ms,
+                 plain_ms=plain, bound_ms=bms, bound_by=by,
+                 library_ms=lib)]
 
     x = cl.lu_solve(LU, perm, b)
     xr = cl.lu_solve_ref(LUr, permr, b)
     sol_err = float(torch.max(torch.abs(x[:-1] - xr[:-1])))
     tLU, tpiv, _ = torch.linalg.lu_factor_ex(A)
-    ms = cuda_ms(lambda: cl.lu_solve(LU, perm, b), reps)
-    plain = cuda_ms(lambda: cl.lu_solve_ref(LU, perm, b),
-                    max(2, reps // 10))
+    ms = cuda_ms(lambda: cl.lu_solve(LU, perm, b), REPS)
+    plain = cuda_ms(lambda: cl.lu_solve_ref(LU, perm, b), 2)
     lib = cuda_ms(lambda: torch.linalg.lu_solve(tLU, tpiv, b[:, :, None]),
-                  reps)
+                  REPS)
     bms, by = bound(L * (n * n * 8 + n * 4 + 2 * n * 8),
                     L * solve_flops(n))
-    rows.append(dict(name="lu_solve", n=n, lanes=L, launches=launches[
-        "lu_solve"], max_abs_err=sol_err, ms=ms, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=lib))
+    rows.append(dict(name="lu_solve", n=n, lanes=L, max_abs_err=sol_err,
+                     ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                     library_ms=lib))
+    return rows
 
-    n, L = shapes["fs"]
+
+def time_factor_solve(cl, n: int, L: int, device) -> dict:
+    """Phase 2b: ``factor_solve`` at ``L`` lanes of size ``n`` beside its
+    plain version and ``torch.linalg.solve_ex``; returns its row."""
+    import torch
     A, b = test_matrices(L - 1, n, seed=2, device=device)
     xf = cl.factor_solve(A, b)
     xfr = cl.factor_solve_ref(A, b)
     fs_err = float(torch.max(torch.abs(xf[:-1] - xfr[:-1])))
-    ms = cuda_ms(lambda: cl.factor_solve(A, b), reps)
-    plain = cuda_ms(lambda: cl.factor_solve_ref(A, b), max(2, reps // 10))
-    lib = cuda_ms(lambda: torch.linalg.solve_ex(A, b), reps)
+    ms = cuda_ms(lambda: cl.factor_solve(A, b), REPS)
+    plain = cuda_ms(lambda: cl.factor_solve_ref(A, b), 2)
+    lib = cuda_ms(lambda: torch.linalg.solve_ex(A, b), REPS)
     bms, by = bound(L * (n * n * 8 + 2 * n * 8),
                     L * (lu_flops(n) + solve_flops(n)))
-    rows.append(dict(name="factor_solve", n=n, lanes=L, launches=launches[
-        "factor_solve"], max_abs_err=fs_err, ms=ms, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=lib))
-    return rows
+    return dict(name="factor_solve", n=n, lanes=L, max_abs_err=fs_err,
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib)
 
 
 def sweep(spec, conds, mask, device):
@@ -259,15 +267,7 @@ def verdicts(out):
             "ambiguous": amb, "negative_tof": neg}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--lanes", type=int, default=65536)
-    ap.add_argument("--cert-lanes", type=int, default=4096)
-    ap.add_argument("--check-lanes", type=int, default=4096)
-    ap.add_argument("--subset", type=int, default=256)
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -290,12 +290,12 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     # -- phase 2: kernels against their plain versions -----------------
-    check_kernels(cl, args.check_lanes, device)
+    check_kernels(cl, CHECK_LANES, device)
     log("phase 2 kernel check: all sizes passed")
 
     # -- phase 3: the main path ----------------------------------------
     spec, base = synthetic_spec(24, 32, seed=0)
-    L = args.lanes
+    L = FLAGSHIP_LANES
     conds = batch.broadcast_conditions(base, L)._replace(
         T=np.linspace(400.0, 800.0, L))
     mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
@@ -322,10 +322,9 @@ def main(argv=None) -> int:
     ok = v["success"]
     assert bool(torch.isfinite(res.x[ok]).all())
     assert bool(torch.isfinite(out[5][ok & v["certified"]]).all())
-    main_counts = counts
 
     # CPU parity on a subset, through the plain versions.
-    idx = np.linspace(0, L - 1, args.subset).round().astype(np.int64)
+    idx = np.linspace(0, L - 1, SUBSET).round().astype(np.int64)
     sub = type(conds)(*(np.asarray(f)[idx] for f in conds))
     out_cpu = batch.fused_sweep(spec, sub, mask, device="cpu")
     vc = verdicts(out_cpu)
@@ -336,13 +335,13 @@ def main(argv=None) -> int:
     close = torch.allclose(x_gpu, x_cpu, rtol=1e-5, atol=1e-12)
     dx = float(torch.max(torch.abs(x_gpu - x_cpu)))
     assert close, f"CPU subset parity: states differ by {dx}"
-    log(f"phase 3 CPU parity: {args.subset} lanes re-run on the CPU through "
+    log(f"phase 3 CPU parity: {SUBSET} lanes re-run on the CPU through "
         f"the plain versions: verdicts equal, max |dx| {dx:.3e} "
         f"(rtol 1e-5, atol 1e-12)")
 
     # -- phase 4: the certificate path ---------------------------------
     cspec, cbase = synthetic_spec(12, 14, seed=0)
-    Lc = args.cert_lanes
+    Lc = CERT_LANES
     cconds = batch.broadcast_conditions(cbase, Lc)._replace(
         T=np.linspace(400.0, 800.0, Lc))
     cmask = engine.tof_mask_for(cspec, [cspec.rnames[-1]])
@@ -353,34 +352,36 @@ def main(argv=None) -> int:
         f"{int(cv['certified'].sum())} ambiguous "
         f"{int(cv['ambiguous'].sum())} | host syncs {csyncs} | wall "
         f"{cwall:.3f} s | launches {ccounts}")
-    assert ccounts["factor_solve"] > 0, ccounts
+    assert all(ccounts[k] > 0 for k in ccounts), ccounts
 
     # -- phase 5: where the main path's time goes -------------------------
     profile_main_path(spec, conds, mask, device)
 
-    # -- kernels line ----------------------------------------------------
-    launches = {k: main_counts[k] + ccounts[k] for k in main_counts}
+    # -- kernels line: one row per kernel per path ------------------------
     m = deflation_basis_for_spec(cspec).shape[1]
     assert 1 <= m <= 8, m
-    n_cert = m * m
-    rows = time_kernels(cl, {"lu": (n_dyn, L), "fs": (n_cert, Lc)},
-                        launches, args.reps, device)
+    n_cert_dyn = len(cspec.dynamic_indices)
+    timed = [("flagship", counts, r) for r in time_lu(cl, n_dyn, L, device)]
+    timed += [("certificate", ccounts, r)
+              for r in time_lu(cl, n_cert_dyn, Lc, device)
+              + [time_factor_solve(cl, m * m, Lc, device)]]
     replaces = {
         "lu_factor": "pycatkin_tpu/ops/pallas_linalg.py:204",
         "lu_solve": "pycatkin_tpu/ops/pallas_linalg.py:219",
         "factor_solve": "pycatkin_tpu/ops/pallas_linalg.py:233",
     }
     kernels = []
-    for r in rows:
+    for path, path_counts, r in timed:
         kernels.append(dict(
             name=r["name"], route="cuda",
             source="pycatkin_tpu_torch/csrc/linalg.cu",
-            replaces=replaces[r["name"]], launches=r["launches"],
+            replaces=replaces[r["name"]], launches=path_counts[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            n=r["n"], lanes=r["lanes"]))
-        log(f"timing {r['name']}: n={r['n']} x {r['lanes']} lanes | kernel "
+            path=path, n=r["n"], lanes=r["lanes"]))
+        log(f"timing {r['name']} ({path}, {path_counts[r['name']]} "
+            f"launches): n={r['n']} x {r['lanes']} lanes | kernel "
             f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms torch.linalg "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")

@@ -1,16 +1,13 @@
 """The dense-solve seam (PyTorch port of ``pycatkin_tpu/ops/linalg.py``).
 
-Every direction solve of the steady solver and every one-shot ``solve``
-resolves through :func:`select_solver`, the one place that picks the
-kernel path:
-
-- CUDA tensors with n <= :data:`cuda_linalg.MAX_N` (128): the
-  hand-written CUDA kernels (``lu_factor`` + ``lu_solve`` for
-  factor-once / solve-many, ``factor_solve`` for one-shot solves), for
-  every n in that range -- no bucket padding is needed.
-- CUDA tensors with n > 128: ``NotImplementedError`` (the blocked kernel
-  for bucket 512 is ROADMAP Queue B item 4).
-- CPU tensors: the kernels' plain PyTorch versions.
+Every direction solve of the steady solver goes through
+:func:`make_msolve` (``lu_factor`` + ``lu_solve``, factor once / solve
+many) and every one-shot solve through :func:`solve` (``factor_solve``).
+The :mod:`cuda_linalg` wrappers alone pick the path: the hand-written
+CUDA kernels for CUDA tensors with n <= 128 (every n in that range, no
+bucket padding), ``NotImplementedError`` above that (the blocked kernel
+for bucket 512 is ROADMAP Queue B item 4), and the kernels' plain
+PyTorch versions for CPU tensors.
 
 :func:`scaling_solve` stays plain PyTorch (:func:`gauss_solve`) on every
 device, as the JAX package keeps the scaling-relation solve off its
@@ -20,22 +17,9 @@ kernel seam. Shapes carry a leading lane dimension: ``A [L, n, n]``,
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
-
 import torch
 
 from . import cuda_linalg
-
-
-class SolverChoice(NamedTuple):
-    """One resolved solve path: ``path`` is ``"cuda"`` (the kernels) or
-    ``"plain"`` (their plain versions on the CPU); ``make_solve(M)``
-    factors once and returns a reusable solve closure (the chord-reuse
-    contract), ``solve(A, b)`` is the one-shot direct solve."""
-    path: str
-    n: int
-    make_solve: Callable
-    solve: Callable
 
 
 def make_msolve(M):
@@ -45,25 +29,9 @@ def make_msolve(M):
     return lambda r: cuda_linalg.lu_solve(LU, perm, r)
 
 
-def select_solver(n: int, device) -> SolverChoice:
-    """THE dispatch seam for dense solves of size ``n`` on ``device``."""
-    n = int(n)
-    device = torch.device(device)
-    if device.type == "cuda":
-        if n > cuda_linalg.MAX_N:
-            raise NotImplementedError(
-                f"dense solve of size {n} on CUDA: the kernels serve "
-                f"n <= {cuda_linalg.MAX_N}; larger systems need the "
-                "blocked kernel (ROADMAP, Queue B item 4)")
-        return SolverChoice("cuda", n, make_msolve, cuda_linalg.factor_solve)
-    if device.type == "cpu":
-        return SolverChoice("plain", n, make_msolve, cuda_linalg.factor_solve)
-    raise ValueError(f"unsupported device {device}")
-
-
 def solve(A, b):
-    """Solve ``A x = b`` for every lane through :func:`select_solver`."""
-    return select_solver(A.shape[-1], A.device).solve(A, b)
+    """Solve ``A x = b`` for every lane in one ``factor_solve`` call."""
+    return cuda_linalg.factor_solve(A, b)
 
 
 def gauss_solve(A, b):

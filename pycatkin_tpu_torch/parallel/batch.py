@@ -77,7 +77,7 @@ def stability_screen(ds: engine.DeviceSpec, conds: Conditions, ys,
 
 def fused_sweep(spec: ModelSpec, conds: Conditions, tof_mask=None,
                 opts: SolverOptions | None = None, pos_tol: float = 1e-2,
-                device=None, check_stability: bool = True):
+                device=None):
     """The clean sweep of ``spec`` over the lane batch ``conds`` (every
     field with a leading lane dimension).
 
@@ -89,8 +89,8 @@ def fused_sweep(spec: ModelSpec, conds: Conditions, tof_mask=None,
 
     Returns, in the JAX program's order: ``res``
     (:class:`SteadyStateResults`, success already quarantine-demoted),
-    ``quar``; with ``check_stability``: ``cert``, ``amb``; with a TOF
-    mask: ``tofs``, ``act``, ``neg``; then the ``[L, 5]`` int32 lane
+    ``quar``, ``cert``, ``amb``; with a TOF mask: ``tofs``, ``act``,
+    ``neg``; then the ``[L, 5]`` int32 lane
     telemetry and the int32 diagnostics bundle ``[n_failed,
     n_quarantined, n_ambiguous, n_demoted, n_negative_tof]``. Everything
     stays on the device; the only host syncs are the solver loop's
@@ -110,20 +110,16 @@ def fused_sweep(spec: ModelSpec, conds: Conditions, tof_mask=None,
     quar = succ_raw & ~finite_l
     succ0 = succ_raw & finite_l
     res = res._replace(success=succ0)
-    outs = [res, quar]
-    amb = demoted = None
-    ok_spec = succ0
-    if check_stability:
-        Q = deflation_basis_for_spec(spec)
-        use_lyap = 0 < Q.shape[1] <= LYAPUNOV_MAX_DIM
-        cert_raw, finite = stability_screen(ds, conds, res.x, pos_tol,
-                                            Q if use_lyap else None)
-        good = finite & succ0
-        cert = good & cert_raw
-        amb = good & ~cert
-        demoted = succ0 & ~cert
-        ok_spec = succ0 & cert
-        outs += [cert, amb]
+    Q = deflation_basis_for_spec(spec)
+    use_lyap = 0 < Q.shape[1] <= LYAPUNOV_MAX_DIM
+    cert_raw, finite = stability_screen(ds, conds, res.x, pos_tol,
+                                        Q if use_lyap else None)
+    good = finite & succ0
+    cert = good & cert_raw
+    amb = good & ~cert
+    demoted = succ0 & ~cert
+    ok_spec = succ0 & cert
+    outs = [res, quar, cert, amb]
     n_neg = None
     if tof_mask is not None:
         mask = torch.as_tensor(np.asarray(tof_mask, dtype=np.float64),

@@ -110,11 +110,10 @@ def conservation_constraints(groups_dyn):
 
 def _direction_factor(A):
     """Factor the batched PTC matrices ``A [L, n, n]`` once and return the
-    solve closure (chord steps reuse it) -- the one direction-solve site,
-    dispatched through :func:`linalg.select_solver`: the CUDA
-    ``lu_factor`` + ``lu_solve`` kernels on a card, their plain versions
-    on the CPU."""
-    return linalg.select_solver(A.shape[-1], A.device).make_solve(A)
+    solve closure (chord steps reuse it) -- the one direction-solve site:
+    the CUDA ``lu_factor`` + ``lu_solve`` kernels on a card, their plain
+    versions on the CPU."""
+    return linalg.make_msolve(A)
 
 
 def _ptc_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):

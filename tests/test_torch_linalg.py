@@ -11,6 +11,8 @@ solves are held against that composition.
 A singular lane comes out non-finite and leaves its neighbours equal to
 their solo runs; CPU tensors never launch a kernel."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,11 +131,16 @@ def test_wrappers_check_their_arguments():
 
 
 def test_select_solver_policy():
-    assert linalg.select_solver(21, "cpu").path == "plain"
-    choice = linalg.select_solver(128, "cuda")
-    assert choice.path == "cuda" and choice.solve is cl.factor_solve
+    """The wrappers' routing: plain version for CPU tensors, the kernel
+    for CUDA tensors up to MAX_N, NotImplementedError above it."""
+    lane = lambda dev, n: SimpleNamespace(device=torch.device(dev),
+                                          shape=(1, n, n))
+    assert cl._route("lu_factor", lane("cpu", cl.MAX_N + 1)) is False
+    assert cl._route("lu_factor", lane("cuda", cl.MAX_N)) is True
     with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        linalg.select_solver(cl.MAX_N + 1, "cuda")
+        cl._route("factor_solve", lane("cuda", cl.MAX_N + 1))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cl._route("lu_solve", lane("meta", 4))
     # The CPU path has no size limit (plain versions).
     A, b = _systems(cl.MAX_N + 2, lanes=1, seed=5)
     x = linalg.solve(_t(A), _t(b))
