@@ -9,26 +9,47 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    ``factor_solve``) against its plain PyTorch version on the card, at
    n = 16, 21, 32, 64, 128 with well-conditioned lanes plus one singular
    lane (perm equal, LU and x within 1e-12 relative, the singular lane
-   non-finite), then each kernel timed at the shapes the sweep gives it
-   beside its plain version and the matching ``torch.linalg`` call;
-3. main path: ``fused_sweep`` on the flagship synthetic 24-species /
-   32-reaction mechanism, 65,536 lanes with T from 400 to 800 K, launch
-   counters zeroed just before and read just after; then 256 of those
-   lanes re-run on the CPU through the plain versions (verdicts equal,
-   states within rtol 1e-5 / atol 1e-12);
+   non-finite); then the plain-PyTorch Gauss-Jordan route (n = 8, 21)
+   on the card against the CPU;
+3. flagship path: ``fused_sweep`` on the synthetic 24-species /
+   32-reaction mechanism, 65,536 lanes with T from 400 to 800 K. Its
+   n = 21 direction solves take Gauss-Jordan, as in the JAX package, so
+   it must launch no kernel. 256 of its lanes re-run on the CPU must
+   give the same verdicts. The Gauss-Jordan route moves states ~1e-4
+   under a one-ulp change of its inputs, in the JAX package as here, so
+   the CPU lanes also run with T up, T down and kscale up by one ulp:
+   the card's states, TOF and activity must lie within twice the largest
+   of those spreads, and the card's states must pass the solver's
+   convergence test evaluated on the CPU (normalized residual <= 1,
+   plus the 1e-3 that two evaluations of it may differ by);
 4. certificate path: ``fused_sweep`` on the synthetic (12, 14) seed-0
    mechanism (deflated dimension 8: a 64 x 64 Kronecker solve per lane),
    4,096 lanes, which must launch ``factor_solve``;
-5. where the time goes: the main path re-run warm, then once more under
-   torch.profiler (device-busy share and the top device kernels).
+5. ABI flagship path: ``sweep_steady_state(..., abi=True,
+   check_stability=True)`` on the flagship mechanism lowered into its
+   bucket (S = 128, R = 64, D = 32), 65,536 lanes, T 400-800 K: the
+   direction solves take ``lu_factor`` + ``lu_solve`` at n = 32 and the
+   padded certificate ``factor_solve`` at n = 16;
+6. ABI certificate path: the same on synthetic (10, 5) seed 0 (the JAX
+   package's bucket-16 mechanism; D = 8, deflated dimension 4, so the
+   16 x 16 Lyapunov system decides), 65,536 lanes, which must launch
+   ``factor_solve``;
+   paths 4-6 re-run 256 lanes on the CPU through the plain versions:
+   verdicts equal, states within rtol 1e-5 / atol 1e-12;
+7. where the time goes: the ABI flagship re-run warm, then once more
+   under torch.profiler (device-busy share and the top device kernels);
+   the flagship re-run warm; the Gauss-Jordan inverse timed at the
+   flagship's shape;
+8. each kernel timed at the shapes each path gives it, beside its plain
+   version and the matching ``torch.linalg`` call.
 
-It prints one line per phase, a ``{"kernels": [...]}`` JSON line, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``. The
-kernels line has one row per kernel per path (``path`` is ``flagship``
-or ``certificate``): its ``launches`` are that path's own run's, and its
-times are taken at the shapes that path gives the kernel. Any failure
-raises and exits non-zero; without a CUDA card it exits 1 and prints no
-result.
+Every path runs with the launch counters zeroed just before it and read
+just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
+line with one row per kernel per path that launches it (``path``:
+``certificate``, ``abi_flagship`` or ``abi_certificate``), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero; without a CUDA card it exits 1 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -49,9 +70,16 @@ SIZES = (16, 21, 32, 64, 128)
 KERNEL_TOL = 1e-12
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
+ABI_CERT_LANES = 65536
 CHECK_LANES = 4096       # well-conditioned lanes per kernel check size
-SUBSET = 256             # flagship lanes re-run on the CPU
+SUBSET = 256             # lanes of each path re-run on the CPU
 REPS = 20                # timed calls per kernel
+ENVELOPE = dict(rtol=1e-5, atol=1e-12)
+# The card converges to normalized residual <= 1 by its own evaluation;
+# two evaluations of the residual agree to rtol 1e-12 of |F| + gross
+# (tests/test_torch_network.py), which moves the normalized residual
+# |F| / (rate_tol + rate_tol_rel gross) by up to 1e-12 / 1e-9.
+RESIDUAL_SLACK = 1e-3
 
 
 def log(msg: str) -> None:
@@ -210,39 +238,90 @@ def time_factor_solve(cl, n: int, L: int, device) -> dict:
                 library_ms=lib)
 
 
-def sweep(spec, conds, mask, device):
-    """One fused sweep with the launch counters and sync counter zeroed
-    just before and read just after; returns (outputs, counts, syncs,
+def check_gauss(device) -> None:
+    """Phase 2c: the plain-PyTorch Gauss-Jordan route (what n <= 48 off
+    the buckets takes) on the card against the same call on the CPU."""
+    import torch
+    from pycatkin_tpu_torch.ops import linalg
+    good = slice(0, CHECK_LANES)
+    for n in (8, 21):
+        A, b = test_matrices(CHECK_LANES, n, seed=n + 1, device=device)
+        x, Ainv = linalg.gauss_solve(A, b), linalg.inv(A)
+        torch.cuda.synchronize()
+        xc, Ainvc = linalg.gauss_solve(A.cpu(), b.cpu()), linalg.inv(A.cpu())
+        e_x = rel_err(x[good].cpu(), xc[good])
+        e_inv = rel_err(Ainv[good].cpu(), Ainvc[good])
+        same = torch.equal(x[good].cpu(), xc[good]) and torch.equal(
+            Ainv[good].cpu(), Ainvc[good])
+        assert max(e_x, e_inv) <= KERNEL_TOL, (n, e_x, e_inv)
+        log(f"gauss check n={n}: {CHECK_LANES} lanes, card vs CPU rel err "
+            f"x {e_x:.2e} inverse {e_inv:.2e}, bit for bit {same}")
+
+
+def counted(run):
+    """``run()`` with the launch counters and the sync counter zeroed
+    just before and read just after; returns (output, counts, syncs,
     wall seconds)."""
     import torch
     from pycatkin_tpu_torch.ops import cuda_linalg as cl
-    from pycatkin_tpu_torch.parallel import batch
     from pycatkin_tpu_torch.solvers import newton
     torch.cuda.synchronize()
     cl.reset_launches()
     newton.reset_syncs()
     t0 = time.perf_counter()
-    out = batch.fused_sweep(spec, conds, mask, device=device)
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(cl.LAUNCHES)
-    syncs = newton.SYNCS["ptc_active"]
-    return out, counts, syncs, wall
+    return out, dict(cl.LAUNCHES), newton.SYNCS["ptc_active"], wall
 
 
-def profile_main_path(spec, conds, mask, device) -> None:
-    """Phase 5: a warm re-run of the main path, then one under
-    torch.profiler: warm wall, device-busy share and the top device
-    kernels by time."""
+def fused(spec, conds, mask, device):
+    from pycatkin_tpu_torch.parallel import batch
+    return lambda: batch.fused_sweep(spec, conds, mask, device=device)
+
+
+def abi_sweep(spec, conds, mask, device):
+    from pycatkin_tpu_torch.parallel import batch
+    return lambda: batch.sweep_steady_state(
+        spec, conds, mask, check_stability=True, abi=True, device=device)
+
+
+def lanes_over_T(base, L):
+    from pycatkin_tpu_torch.parallel import batch
+    import numpy as np
+    return batch.broadcast_conditions(base, L)._replace(
+        T=np.linspace(400.0, 800.0, L))
+
+
+def cpu_subset(conds):
+    """SUBSET evenly spaced lanes of ``conds``: (indices, conditions)."""
+    import numpy as np
+    L = len(conds.T)
+    idx = np.linspace(0, L - 1, SUBSET).round().astype(np.int64)
+    return idx, type(conds)(*(np.asarray(f)[idx] for f in conds))
+
+
+def envelope_gap(a, b) -> tuple:
+    """(max |a - b|, max |a - b| / (atol + rtol |b|)): the second is at
+    most 1 inside the envelope."""
+    import torch
+    d = torch.abs(a - b)
+    return float(d.max()), float(torch.max(
+        d / (ENVELOPE["atol"] + ENVELOPE["rtol"] * torch.abs(b))))
+
+
+def profile_path(run, lanes: int, label: str) -> float:
+    """Phase 7: a warm re-run of a path, then one under torch.profiler:
+    warm wall, device-busy share and the top device kernels by time.
+    Returns the warm wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    _, counts, syncs, wall = sweep(spec, conds, mask, device)
-    log(f"phase 5 warm main path: wall {wall:.3f} s, "
-        f"{len(conds.T) / wall:.1f} lanes/s, host syncs {syncs}, "
-        f"launches {counts}")
+    _, counts, syncs, wall = counted(run)
+    log(f"phase 7 warm {label}: wall {wall:.3f} s, {lanes / wall:.1f} "
+        f"lanes/s, host syncs {syncs}, launches {counts}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, _, pwall = sweep(spec, conds, mask, device)
+        _, _, _, pwall = counted(run)
     # Device time = the kernels' and copies' own intervals on the card
     # (events of device type CUDA; operator rows would count them twice).
     kernels = [e for e in prof.events()
@@ -252,19 +331,126 @@ def profile_main_path(spec, conds, mask, device) -> None:
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    log(f"phase 5 profile: wall under the profiler {pwall:.3f} s, device "
-        f"busy {busy:.3f} s ({100.0 * busy / pwall:.1f} % of wall), "
+    log(f"phase 7 profile {label}: wall under the profiler {pwall:.3f} s, "
+        f"device busy {busy:.3f} s ({100.0 * busy / pwall:.1f} % of wall), "
         f"{len(kernels)} device kernels and copies")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :15]:
-        log(f"phase 5 kernel {name[:70]!r}: {t / 1e3:.1f} ms, {c} calls, "
+        log(f"phase 7 kernel {name[:70]!r}: {t / 1e3:.1f} ms, {c} calls, "
             f"{100.0 * t / 1e6 / busy:.1f} % of device time")
+    return wall
 
 
 def verdicts(out):
     res, quar, cert, amb, tofs, act, neg = out[:7]
     return {"success": res.success, "quarantined": quar, "certified": cert,
             "ambiguous": amb, "negative_tof": neg}
+
+
+def cpu_normalized_residual(spec, conds, x):
+    """The solver's convergence measure, evaluated by the port's engine
+    on the CPU at full states ``x`` ``[L, n_s]``: per lane, max over the
+    dynamic species of ``|F_i| / (rate_tol + rate_tol_rel * gross_i)``
+    (converged when <= 1)."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.solvers import newton
+    ds = engine.bind(spec, "cpu")
+    ct = engine.conditions_to(conds, "cpu")
+    kf, kr, _ = engine.rate_constants(ds, ct)
+    F, gross = engine.closures(ds, ct, kf, kr).fscale(
+        x[:, list(spec.dynamic_indices)])
+    return newton._rnorm(F, gross, newton.SolverOptions())
+
+
+def fused_cpu_parity(label, spec, conds, mask, out, hold_states):
+    """256 lanes of a ``fused_sweep`` path re-run on the CPU through the
+    plain versions: verdicts equal. Where ``hold_states``, states within
+    the envelope. Else (the Gauss-Jordan route, whose states move ~1e-4
+    under a one-ulp change of its inputs) the CPU lanes run three more
+    times with T up, T down and kscale up by one ulp; the card's states,
+    TOF and activity must lie within twice the largest of those spreads,
+    and every entry of its states must pass the solver's convergence
+    test evaluated on the CPU (the standard of
+    tests/test_torch_sweep.py::test_flagship_matches_stock_jax)."""
+    import torch
+    from pycatkin_tpu_torch.parallel import batch
+    idx, sub = cpu_subset(conds)
+    out_cpu = batch.fused_sweep(spec, sub, mask, device="cpu")
+    v, vc = verdicts(out), verdicts(out_cpu)
+    for name in v:
+        assert torch.equal(v[name][idx].cpu(), vc[name]), \
+            f"{label} CPU subset parity: {name} differs"
+    dx, frac = envelope_gap(out[0].x[idx].cpu(), out_cpu[0].x)
+    if hold_states:
+        assert frac <= 1.0, f"{label} CPU subset parity: states differ by {dx}"
+        log(f"{label} CPU parity: {SUBSET} lanes re-run on the CPU through "
+            f"the plain versions: verdicts equal, max |dx| {dx:.3e} "
+            f"({frac:.3g} of the rtol 1e-5 / atol 1e-12 envelope)")
+        return
+    ulp = 1.0 + 2.0 ** -52
+    runs = [batch.fused_sweep(spec, c, mask, device="cpu") for c in (
+        sub._replace(T=sub.T * ulp), sub._replace(T=sub.T / ulp),
+        sub._replace(kscale=sub.kscale * ulp))]
+    parts = []
+    for name, get in (("x", lambda o: o[0].x), ("tof", lambda o: o[4]),
+                      ("activity", lambda o: o[5])):
+        ref = get(out_cpu)
+        spread = max(float(torch.max(torch.abs(get(r) - ref)))
+                     for r in runs)
+        gap = float(torch.max(torch.abs(get(out)[idx].cpu() - ref)))
+        assert gap <= 2.0 * spread, \
+            f"{label} CPU subset parity: {name} differs by {gap}, twice " \
+            f"the one-ulp spread is {2.0 * spread}"
+        parts.append(f"{name} max gap {gap:.3e} vs one-ulp spread "
+                     f"{spread:.3e}")
+    rn = float(cpu_normalized_residual(spec, sub, out[0].x[idx].cpu()).max())
+    assert rn <= 1.0 + RESIDUAL_SLACK, \
+        f"{label} CPU subset parity: the card's states fail the " \
+        f"convergence test on the CPU (normalized residual {rn})"
+    log(f"{label} CPU parity: {SUBSET} lanes re-run on the CPU through "
+        f"the plain versions, and with T up, T down, kscale up one ulp: "
+        f"verdicts equal, max |dx| {dx:.3e} ({frac:.3g} of the rtol 1e-5 "
+        f"/ atol 1e-12 envelope); " + "; ".join(parts) + f"; normalized "
+        f"residual of the card's states on the CPU {rn:.3g}")
+
+
+def abi_cpu_parity(label, spec, conds, mask, out):
+    """256 lanes of an ABI path re-run on the CPU through the plain
+    versions: verdict masks equal, states within the envelope."""
+    import torch
+    from pycatkin_tpu_torch.parallel import batch
+    idx, sub = cpu_subset(conds)
+    ref = batch.sweep_steady_state(spec, sub, mask, check_stability=True,
+                                   abi=True, device="cpu")
+    for name in ("success", "stable", "quarantined"):
+        assert torch.equal(out[name][idx].cpu(), ref[name]), \
+            f"{label} CPU subset parity: {name} differs"
+    dx, frac = envelope_gap(out["y"][idx].cpu(), ref["y"])
+    assert frac <= 1.0, f"{label} CPU subset parity: states differ by {dx}"
+    tof = out["tof"][idx].cpu()
+    dtof = float(torch.max(torch.abs(tof - ref["tof"])
+                           / torch.abs(ref["tof"])))
+    log(f"{label} CPU parity: {SUBSET} lanes re-run on the CPU through "
+        f"the plain versions: success, stable, quarantined equal, max "
+        f"|dy| {dx:.3e} ({frac:.3g} of the envelope), max TOF rel diff "
+        f"{dtof:.3e}")
+
+
+def report_abi(label, low, L, out, counts, syncs, wall, peak):
+    import torch
+    y = out["y"]
+    assert y.shape == (L, low.n_s_real), y.shape
+    assert bool(out["success"].all()) and bool(out["stable"].all())
+    assert bool(torch.isfinite(y).all())
+    assert bool(torch.isfinite(out["tof"]).all())
+    it = out["iterations"]
+    log(f"{label}: S={low.static.n_species} R={low.static.n_reactions} "
+        f"D={low.static.n_dynamic} lyap_ok={low.lyap_ok:.0f}, {L} lanes T "
+        f"400-800 K | converged and stable {int(out['success'].sum())} | "
+        f"negative TOF {int((out['tof'] < 0).sum())} | median iterations "
+        f"{float(it.double().median()):.0f} max {int(it.max())} | host "
+        f"syncs {syncs} | wall {wall:.3f} s, {L / wall:.1f} lanes/s, peak "
+        f"memory {peak:.1f} MiB | launches {counts}")
 
 
 def main() -> int:
@@ -275,9 +461,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.frontend import abi
     from pycatkin_tpu_torch.models.synthetic import synthetic_spec
     from pycatkin_tpu_torch.ops import cuda_linalg as cl
-    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.ops import linalg
     from pycatkin_tpu_torch.solvers.newton import deflation_basis_for_spec
 
     device = torch.device("cuda")
@@ -291,80 +478,103 @@ def main() -> int:
 
     # -- phase 2: kernels against their plain versions -----------------
     check_kernels(cl, CHECK_LANES, device)
+    check_gauss(device)
     log("phase 2 kernel check: all sizes passed")
 
-    # -- phase 3: the main path ----------------------------------------
+    # -- phase 3: the flagship path (Gauss-Jordan, no kernel) ----------
     spec, base = synthetic_spec(24, 32, seed=0)
     L = FLAGSHIP_LANES
-    conds = batch.broadcast_conditions(base, L)._replace(
-        T=np.linspace(400.0, 800.0, L))
+    conds = lanes_over_T(base, L)
     mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
     torch.cuda.reset_peak_memory_stats()
-    out, counts, syncs, wall = sweep(spec, conds, mask, device)
+    out, counts, syncs, wall = counted(fused(spec, conds, mask, device))
     peak = torch.cuda.max_memory_allocated() / 2**20
     res = out[0]
     v = verdicts(out)
     n_dyn = len(spec.dynamic_indices)
     bundle = out[-1].cpu().tolist()
-    log(f"phase 3 main path: flagship synthetic(24, 32) n_dyn={n_dyn}, "
-        f"{L} lanes T 400-800 K | converged "
-        f"{int(v['success'].sum())} quarantined "
+    log(f"phase 3 flagship path: synthetic(24, 32) n_dyn={n_dyn} "
+        f"({linalg.select_solver(n_dyn).path}), {L} lanes T 400-800 K | "
+        f"converged {int(v['success'].sum())} quarantined "
         f"{int(v['quarantined'].sum())} certified "
         f"{int(v['certified'].sum())} ambiguous "
         f"{int(v['ambiguous'].sum())} negative-TOF "
         f"{int(v['negative_tof'].sum())} | bundle {bundle} | median "
-        f"iterations {float(res.iterations.float().median()):.0f} max "
+        f"iterations {float(res.iterations.double().median()):.0f} max "
         f"{int(res.iterations.max())} | host syncs {syncs} | wall "
         f"{wall:.3f} s, {L / wall:.1f} lanes/s, peak memory {peak:.1f} MiB "
         f"| launches {counts}")
-    assert counts["lu_factor"] > 0 and counts["lu_solve"] > 0, counts
+    assert set(counts.values()) == {0}, counts
     assert res.x.shape == (L, spec.n_species)
     ok = v["success"]
     assert bool(torch.isfinite(res.x[ok]).all())
     assert bool(torch.isfinite(out[5][ok & v["certified"]]).all())
-
-    # CPU parity on a subset, through the plain versions.
-    idx = np.linspace(0, L - 1, SUBSET).round().astype(np.int64)
-    sub = type(conds)(*(np.asarray(f)[idx] for f in conds))
-    out_cpu = batch.fused_sweep(spec, sub, mask, device="cpu")
-    vc = verdicts(out_cpu)
-    for name in v:
-        assert torch.equal(v[name][idx].cpu(), vc[name]), \
-            f"CPU subset parity: {name} differs"
-    x_gpu, x_cpu = res.x[idx].cpu(), out_cpu[0].x
-    close = torch.allclose(x_gpu, x_cpu, rtol=1e-5, atol=1e-12)
-    dx = float(torch.max(torch.abs(x_gpu - x_cpu)))
-    assert close, f"CPU subset parity: states differ by {dx}"
-    log(f"phase 3 CPU parity: {SUBSET} lanes re-run on the CPU through "
-        f"the plain versions: verdicts equal, max |dx| {dx:.3e} "
-        f"(rtol 1e-5, atol 1e-12)")
+    fused_cpu_parity("phase 3", spec, conds, mask, out, hold_states=False)
 
     # -- phase 4: the certificate path ---------------------------------
     cspec, cbase = synthetic_spec(12, 14, seed=0)
     Lc = CERT_LANES
-    cconds = batch.broadcast_conditions(cbase, Lc)._replace(
-        T=np.linspace(400.0, 800.0, Lc))
+    cconds = lanes_over_T(cbase, Lc)
     cmask = engine.tof_mask_for(cspec, [cspec.rnames[-1]])
-    cout, ccounts, csyncs, cwall = sweep(cspec, cconds, cmask, device)
+    cout, ccounts, csyncs, cwall = counted(fused(cspec, cconds, cmask,
+                                                 device))
     cv = verdicts(cout)
     log(f"phase 4 certificate path: synthetic(12, 14) seed 0, {Lc} lanes | "
         f"converged {int(cv['success'].sum())} certified "
         f"{int(cv['certified'].sum())} ambiguous "
         f"{int(cv['ambiguous'].sum())} | host syncs {csyncs} | wall "
         f"{cwall:.3f} s | launches {ccounts}")
-    assert all(ccounts[k] > 0 for k in ccounts), ccounts
+    assert ccounts["factor_solve"] > 0, ccounts
+    fused_cpu_parity("phase 4", cspec, cconds, cmask, cout, hold_states=True)
 
-    # -- phase 5: where the main path's time goes -------------------------
-    profile_main_path(spec, conds, mask, device)
+    # -- phase 5: the ABI flagship path --------------------------------
+    low = abi.lower_spec(spec)
+    assert low.static.n_dynamic == 32 and low.lyap_ok == 0.0
+    torch.cuda.reset_peak_memory_stats()
+    run_abi = abi_sweep(spec, conds, mask, device)
+    aout, acounts, asyncs, awall = counted(run_abi)
+    apeak = torch.cuda.max_memory_allocated() / 2**20
+    report_abi("phase 5 ABI flagship path", low, L, aout, acounts, asyncs,
+               awall, apeak)
+    assert all(acounts[k] > 0 for k in acounts), acounts
+    abi_cpu_parity("phase 5", spec, conds, mask, aout)
 
-    # -- kernels line: one row per kernel per path ------------------------
+    # -- phase 6: the ABI certificate path -----------------------------
+    sspec, sbase = synthetic_spec(10, 5, seed=0)
+    slow = abi.lower_spec(sspec)
+    assert slow.static.n_dynamic == 8 and slow.lyap_ok == 1.0
+    Ls = ABI_CERT_LANES
+    sconds = lanes_over_T(sbase, Ls)
+    smask = engine.tof_mask_for(sspec, [sspec.rnames[-1]])
+    torch.cuda.reset_peak_memory_stats()
+    sout, scounts, ssyncs, swall = counted(abi_sweep(sspec, sconds, smask,
+                                                     device))
+    speak = torch.cuda.max_memory_allocated() / 2**20
+    report_abi("phase 6 ABI certificate path", slow, Ls, sout, scounts,
+               ssyncs, swall, speak)
+    assert scounts["factor_solve"] > 0, scounts
+    abi_cpu_parity("phase 6", sspec, sconds, smask, sout)
+
+    # -- phase 7: where the time goes -----------------------------------
+    profile_path(run_abi, L, "ABI flagship")
+    _, _, _, fwall = counted(fused(spec, conds, mask, device))
+    log(f"phase 7 warm flagship: wall {fwall:.3f} s, {L / fwall:.1f} "
+        f"lanes/s")
+    A21, _ = test_matrices(L - 1, n_dyn, seed=3, device=device)
+    inv_ms = cuda_ms(lambda: linalg.inv(A21), 3, warmup=1)
+    log(f"phase 7 Gauss-Jordan inverse (plain PyTorch) n={n_dyn} x {L} "
+        f"lanes: {inv_ms:.3f} ms")
+    del A21
+
+    # -- phase 8, kernels line: one row per kernel per path ---------------
     m = deflation_basis_for_spec(cspec).shape[1]
-    assert 1 <= m <= 8, m
-    n_cert_dyn = len(cspec.dynamic_indices)
-    timed = [("flagship", counts, r) for r in time_lu(cl, n_dyn, L, device)]
-    timed += [("certificate", ccounts, r)
-              for r in time_lu(cl, n_cert_dyn, Lc, device)
-              + [time_factor_solve(cl, m * m, Lc, device)]]
+    assert m * m > linalg.UNROLL_MAX, m
+    fs16 = time_factor_solve(cl, abi.LYAP_PAD ** 2, L, device)
+    timed = [("certificate", ccounts, time_factor_solve(cl, m * m, Lc,
+                                                        device))]
+    timed += [("abi_flagship", acounts, r)
+              for r in time_lu(cl, low.static.n_dynamic, L, device) + [fs16]]
+    timed += [("abi_certificate", scounts, fs16)]
     replaces = {
         "lu_factor": "pycatkin_tpu/ops/pallas_linalg.py:204",
         "lu_solve": "pycatkin_tpu/ops/pallas_linalg.py:219",
@@ -372,6 +582,7 @@ def main() -> int:
     }
     kernels = []
     for path, path_counts, r in timed:
+        assert path_counts[r["name"]] > 0, (path, r["name"])
         kernels.append(dict(
             name=r["name"], route="cuda",
             source="pycatkin_tpu_torch/csrc/linalg.cu",

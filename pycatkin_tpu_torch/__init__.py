@@ -7,7 +7,9 @@ of ``vmap``, and the batched-LU Pallas kernels of
 ``pycatkin_tpu/ops/pallas_linalg.py`` rewritten as hand-written CUDA
 kernels (``csrc/linalg.cu``, bound in :mod:`.ops.cuda_linalg`).
 
-Entry point: :func:`pycatkin_tpu_torch.parallel.batch.fused_sweep`.
+Entry point: :func:`pycatkin_tpu_torch.parallel.batch.sweep_steady_state`
+(``abi=True`` lowers the mechanism into its shape bucket first,
+:mod:`.frontend.abi`); below it, :func:`~.parallel.batch.fused_sweep`.
 Public entry points run on the CUDA card unless ``device="cpu"`` is
 passed, and raise when no card is present.
 """

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .constants import LOG_H_OVER_KB, R, bartoPa, eVtokJ, kB
+from .frontend.abi import AbiLowered
 from .frontend.spec import REACTOR_CSTR, Conditions, ModelSpec
 from .ops import linalg, network, rates, thermo
 from .solvers import newton
@@ -41,9 +42,12 @@ class DeviceSpec:
     tensors the solver needs (``dS_PR = SP - SR``, ``dS_TR = ST - SR``,
     ``groups_dyn``, ``dyn_src``). ``dyn_mask`` (``[n_dyn]``, optional)
     marks real dynamic slots; pad slots get the decoupled residual
-    ``F = -x``."""
+    ``F = -x``. A spec lowered into an ABI bucket also carries its
+    padded deflation basis ``lyap_q`` (``[D, 4]``) and its validity
+    flag ``lyap_ok`` (a 0-d tensor, 1 or 0); both are None otherwise."""
 
-    def __init__(self, spec: ModelSpec, device, dyn_mask=None):
+    def __init__(self, spec: ModelSpec, device, dyn_mask=None,
+                 lyap_q=None, lyap_ok=None):
         import dataclasses
         self.host = spec
         self.device = torch.device(device)
@@ -69,14 +73,21 @@ class DeviceSpec:
         self.dyn_src = torch.as_tensor(src, dtype=torch.int64,
                                        device=self.device)
         self.dyn_mask = None if dyn_mask is None else t(dyn_mask)
+        self.lyap_q = None if lyap_q is None else t(lyap_q)
+        self.lyap_ok = None if lyap_ok is None else t(lyap_ok)
         self.has_udar = spec.has_udar
         self.has_gfree = spec.has_gfree
         self.n_species = spec.n_species
         self.n_reactions = spec.n_reactions
 
 
-def bind(spec: ModelSpec, device, dyn_mask=None) -> DeviceSpec:
-    """Move ``spec`` to ``device`` (see :class:`DeviceSpec`)."""
+def bind(spec, device, dyn_mask=None) -> DeviceSpec:
+    """Move ``spec`` to ``device`` (see :class:`DeviceSpec`). An
+    :class:`~.frontend.abi.AbiLowered` binds its padded spec with its
+    ``dyn_mask``, ``lyap_q`` and ``lyap_ok``."""
+    if isinstance(spec, AbiLowered):
+        return DeviceSpec(spec.spec_padded, device, dyn_mask=spec.dyn_mask,
+                          lyap_q=spec.lyap_q, lyap_ok=spec.lyap_ok)
     return DeviceSpec(spec, device, dyn_mask=dyn_mask)
 
 

@@ -110,9 +110,10 @@ def conservation_constraints(groups_dyn):
 
 def _direction_factor(A):
     """Factor the batched PTC matrices ``A [L, n, n]`` once and return the
-    solve closure (chord steps reuse it) -- the one direction-solve site:
-    the CUDA ``lu_factor`` + ``lu_solve`` kernels on a card, their plain
-    versions on the CPU."""
+    solve closure (chord steps reuse it) -- the one direction-solve site,
+    routed by :func:`linalg.select_solver`: the Gauss-Jordan inverse
+    for n <= 48 off the bucket sizes, else the ``lu_factor`` +
+    ``lu_solve`` kernels (their plain versions on the CPU)."""
     return linalg.make_msolve(A)
 
 
@@ -131,7 +132,7 @@ def _ptc_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
     fnorm = _rnorm(F, gross, opts)
     x = x0
     dt = torch.full((L,), float(opts.dt0), dtype=x0.dtype, device=x0.device)
-    k = torch.zeros(L, dtype=torch.int32, device=x0.device)
+    k = torch.zeros(L, dtype=torch.int64, device=x0.device)
     nch = torch.zeros(L, dtype=torch.int32, device=x0.device)
     while True:
         active = (k < opts.max_steps) & (fnorm > 1.0)
@@ -349,14 +350,15 @@ def lyapunov_certified_stable(J, Q, tol, eps_eff: float | None = None):
     (elimination pivots with a rounding margin) and ||R||_2 < 1 with a
     per-entry forward-error margin. A bad solve can only abstain.
 
-    ``J [L, n, n]``, ``Q [n, m]`` (m >= 1), ``tol [L]``; the
-    ``m^2 x m^2`` Kronecker system is solved through
-    :func:`linalg.solve` (the ``factor_solve`` kernel on a card).
-    Returns a bool tensor ``[L]``."""
+    ``J [L, n, n]``, ``Q [n, m]`` (m >= 1; a numpy array or a
+    tensor), ``tol [L]``; the ``m^2 x m^2`` Kronecker system is solved
+    through :func:`linalg.solve` (``factor_solve`` at m = 4, the padded
+    ABI basis, and at m >= 7; Gauss-Jordan below). Returns a bool
+    tensor ``[L]``."""
     L = J.shape[0]
     m = Q.shape[1]
     dev, dt = J.device, J.dtype
-    Qc = torch.as_tensor(np.asarray(Q), dtype=dt, device=dev)
+    Qc = torch.as_tensor(Q, dtype=dt, device=dev)
     B = Qc.T @ J @ Qc
     eye = torch.eye(m, dtype=dt, device=dev)
     sc = torch.clamp(torch.amax(torch.abs(B), dim=(-2, -1)), min=1e-300)

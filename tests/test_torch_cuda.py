@@ -75,9 +75,35 @@ def test_sweep_on_the_card_matches_the_cpu(device):
     mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
     cl.reset_launches()
     gpu = batch.fused_sweep(spec, conds, mask, device=device)
-    assert cl.LAUNCHES["lu_factor"] > 0 and cl.LAUNCHES["factor_solve"] > 0
+    # n_dyn = 9 takes Gauss-Jordan; the 64 x 64 Kronecker solve the LU.
+    assert cl.LAUNCHES["lu_factor"] == 0 and cl.LAUNCHES["factor_solve"] > 0
     cpu = batch.fused_sweep(spec, conds, mask, device="cpu")
     for i in (1, 2, 3, 6, 8):
         assert torch.equal(gpu[i].cpu(), cpu[i]), i
     assert torch.equal(gpu[0].success.cpu(), cpu[0].success)
     assert torch.allclose(gpu[0].x.cpu(), cpu[0].x, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(24, 32), (10, 5)],
+                         ids=["flagship", "10x5"])
+def test_abi_sweep_on_the_card_matches_the_cpu(device, shape):
+    """The ABI route: the flagship's D = 32 direction solves launch
+    ``lu_factor`` + ``lu_solve``; both mechanisms' padded 16 x 16
+    certificate launches ``factor_solve``."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+
+    spec, base = synthetic_spec(*shape, seed=0)
+    conds = batch.broadcast_conditions(base, 16)._replace(
+        T=np.linspace(400.0, 800.0, 16))
+    mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
+    kw = dict(check_stability=True, abi=True)
+    cl.reset_launches()
+    gpu = batch.sweep_steady_state(spec, conds, mask, device=device, **kw)
+    assert cl.LAUNCHES["factor_solve"] > 0
+    assert (cl.LAUNCHES["lu_factor"] > 0) == (shape == (24, 32))
+    cpu = batch.sweep_steady_state(spec, conds, mask, device="cpu", **kw)
+    for k in ("success", "stable", "quarantined", "iterations"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    assert torch.allclose(gpu["y"].cpu(), cpu["y"], rtol=1e-5, atol=1e-12)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from pycatkin_tpu import precision
 from pycatkin_tpu.ops import linalg as jlinalg
 from pycatkin_tpu.ops import pallas_linalg as plk
 from pycatkin_tpu_torch.ops import cuda_linalg as cl
@@ -77,8 +78,17 @@ def test_plain_versions_match_xla_lu(n, k):
     assert _rel(LUt, LUj) <= TOL
     assert _rel(cl.lu_solve(LUt, pt, _t(b)), xj) <= TOL
     assert _rel(cl.factor_solve(_t(A), _t(b)), xj) <= TOL
-    assert _rel(linalg.solve(_t(A), _t(b)), xj) <= TOL
-    assert _rel(linalg.make_msolve(_t(A))(_t(b)), xj) <= TOL
+    # The seam routes as the JAX package's: n = 64 by LU (the
+    # composition above), n = 21 by Gauss-Jordan.
+    if jlinalg.select_solver(n).path == "gauss":
+        sj = jax.jit(jax.vmap(jlinalg.gauss_solve))(jnp.asarray(A),
+                                                    jnp.asarray(b))
+        mj = jax.jit(jax.vmap(lambda M, r: jlinalg._make_inv_solve(M)(r)))(
+            jnp.asarray(A), jnp.asarray(b))
+    else:
+        sj = mj = xj
+    assert _rel(linalg.solve(_t(A), _t(b)), sj) <= TOL
+    assert _rel(linalg.make_msolve(_t(A))(_t(b)), mj) <= TOL
 
 
 @pytest.mark.parametrize("n", [5, 21])
@@ -130,9 +140,18 @@ def test_wrappers_check_their_arguments():
         cl.lu_solve(LU, perm.long(), bt)
 
 
-def test_select_solver_policy():
-    """The wrappers' routing: plain version for CPU tensors, the kernel
-    for CUDA tensors up to MAX_N, NotImplementedError above it."""
+def test_select_solver_policy(monkeypatch):
+    """The seam picks the JAX package's path for every n under the
+    Pallas tier (the TPU's); the wrappers then take the plain version
+    for CPU tensors, the kernel for CUDA tensors up to MAX_N, and raise
+    NotImplementedError above it."""
+    monkeypatch.setenv(precision.KERNEL_ENV, "pallas")
+    for n in list(range(1, 131)) + [256, 512]:
+        assert linalg.select_solver(n).path == \
+            jlinalg.select_solver(n).path, n
+    assert [n for n in range(1, 513)
+            if linalg.select_solver(n).path == "pallas"] == [16, 32, 128,
+                                                             512]
     lane = lambda dev, n: SimpleNamespace(device=torch.device(dev),
                                           shape=(1, n, n))
     assert cl._route("lu_factor", lane("cpu", cl.MAX_N + 1)) is False
@@ -147,6 +166,28 @@ def test_select_solver_policy():
     assert _rel(x, np.linalg.solve(A, b[..., None])[..., 0]) <= 1e-10
 
 
+@pytest.mark.parametrize("n", [5, 21, 48])
+def test_gauss_jordan_route_matches_jax(n):
+    """Below 49, off the buckets: the explicit inverse and the
+    factor-once solve are the JAX package's ``inv`` / ``_make_inv_solve``
+    -- the inverse bit for bit (the same arithmetic, each update rounded
+    once), the matvec within TOL -- and no kernel is launched."""
+    A, b = _systems(n, seed=11)
+    A *= 10.0 ** np.random.default_rng(n).uniform(-12, 12, (LANES, n, 1))
+    cl.reset_launches()
+    inv_j = jax.jit(jax.vmap(jlinalg.inv))(jnp.asarray(A))
+    assert np.array_equal(linalg.inv(_t(A)).numpy(), np.asarray(inv_j))
+    assert linalg.select_solver(n).path == "gauss"
+    # _make_inv_solve(M)(r) is inv(M) @ r; the inverse is reused here
+    # rather than unrolled and compiled once more.
+    matvec = jax.jit(jax.vmap(lambda Minv, r: Minv @ r))
+    B = np.stack([b, 2.0 * b], axis=-1)
+    for rhs in (b, B):
+        want = matvec(inv_j, jnp.asarray(rhs))
+        assert _rel(linalg.make_msolve(_t(A))(_t(rhs)), want) <= TOL
+    assert cl.LAUNCHES == {"lu_factor": 0, "lu_solve": 0, "factor_solve": 0}
+
+
 @pytest.mark.parametrize("k", [None, 3], ids=["vec", "mat3"])
 def test_gauss_solve_matches_jax(k):
     A, b = _systems(5, k, seed=7)
@@ -154,3 +195,5 @@ def test_gauss_solve_matches_jax(k):
                                                 jnp.asarray(b))
     assert _rel(linalg.gauss_solve(_t(A), _t(b)), xj) <= TOL
     assert _rel(linalg.scaling_solve(_t(A), _t(b)), xj) <= TOL
+    assert np.array_equal(linalg.gauss_solve(_t(A), _t(b)).numpy(),
+                          np.asarray(xj))
