@@ -7,10 +7,13 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
 1. device: the card's name and power limit (nvidia-smi) and the build time;
 2. kernel check: every kernel (``lu_factor``, ``lu_solve``,
    ``factor_solve``) against its plain PyTorch version on the card, at
-   n = 16, 21, 32, 64, 128 with well-conditioned lanes plus one singular
+   n = 16, 32 (the warp tier), 9, 21, 64, 128 (the shared-memory block
+   tier), 165 (the largest shapes in shared memory) and 256, 512 (the
+   device-memory tier), with well-conditioned lanes plus one singular
    lane (perm equal, LU and x within 1e-12 relative, the singular lane
-   non-finite); then the plain-PyTorch Gauss-Jordan route (n = 8, 21)
-   on the card against the CPU;
+   non-finite). At n = 16 and 32 the check takes 65,537 lanes, which
+   leaves the warp tier a partial last block. Then the plain-PyTorch
+   Gauss-Jordan route (n = 8, 21) on the card against the CPU;
 3. flagship path: ``fused_sweep`` on the synthetic 24-species /
    32-reaction mechanism, 65,536 lanes with T from 400 to 800 K. Its
    n = 21 direction solves take Gauss-Jordan, as in the JAX package, so
@@ -36,17 +39,31 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    ``factor_solve``;
    paths 4-6 re-run 256 lanes on the CPU through the plain versions:
    verdicts equal, states within rtol 1e-5 / atol 1e-12;
-7. where the time goes: the ABI flagship re-run warm, then once more
-   under torch.profiler (device-busy share and the top device kernels);
-   the flagship re-run warm; the Gauss-Jordan inverse timed at the
-   flagship's shape;
-8. each kernel timed at the shapes each path gives it, beside its plain
-   version and the matching ``torch.linalg`` call.
+7. large path: synthetic (200, 200) seed 0, 2,048 lanes, T 400-800 K,
+   run two ways, each of which must launch ``lu_factor`` and
+   ``lu_solve``: ``fused_sweep`` (n_dyn = 165 > 128, the LU route, the
+   matrix in shared memory) and ``sweep_steady_state(abi=True,
+   check_stability=False)`` (S = 512, D = 256, the LU route on the
+   device-memory tier). The tier-2 host eigensolve at n = 256 is left
+   out: it is host time this phase does not measure. 16 lanes of each
+   re-run on the CPU: verdicts equal; states, TOF and activity within
+   rtol 1e-5 / atol 1e-9 (:data:`LARGE_ENVELOPE`), and the card's
+   states pass the CPU's convergence test. The log line also gives the
+   reference's own spread under a one-ulp change of T or kscale, which
+   is why the atol is not phase 5's 1e-12;
+8. where the time goes: the ABI flagship and both large runs re-run
+   warm, then once more under torch.profiler (device-busy share and the
+   top device kernels); the flagship re-run warm; the Gauss-Jordan
+   inverse timed at the flagship's shape;
+9. each kernel timed at the shapes each path gives it, beside its plain
+   version and the matching ``torch.linalg`` call; then, on no path,
+   the three kernels at n = 512 and ``factor_solve`` at n = 165, 256.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
 line with one row per kernel per path that launches it (``path``:
-``certificate``, ``abi_flagship`` or ``abi_certificate``), the
+``certificate``, ``abi_flagship``, ``abi_certificate``, ``large`` or
+``large_abi``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA card it exits 1 and
 prints no result.
@@ -66,15 +83,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, 34 TFLOP/s on the FP64 vector units) and its HBM3 rate.
 PEAK_FP64_FLOPS = 67.0e12
 PEAK_BYTES_PER_S = 3.35e12
-SIZES = (16, 21, 32, 64, 128)
+SIZES = (9, 16, 21, 32, 64, 128, 165, 256, 512)
 KERNEL_TOL = 1e-12
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
 ABI_CERT_LANES = 65536
+LARGE_LANES = 2048       # synthetic (200, 200): ~20 GiB peak at D = 256
 CHECK_LANES = 4096       # well-conditioned lanes per kernel check size
+LARGE_CHECK_LANES = 128  # well-conditioned lanes per check size above 128
 SUBSET = 256             # lanes of each path re-run on the CPU
+LARGE_SUBSET = 16        # the same for the large path
 REPS = 20                # timed calls per kernel
 ENVELOPE = dict(rtol=1e-5, atol=1e-12)
+# The large path's envelope. On an H100 its states sit 4.3e-11 from the
+# CPU's (the engine's reductions round differently on the card; the LU
+# kernels are bit for bit), while the reference itself moves them by
+# 1.2e-7 under a one-ulp change of T or kscale: 1e-9 lies between, ~20
+# times the gap and ~100 times below the spread.
+LARGE_ENVELOPE = dict(rtol=1e-5, atol=1e-9)
 # The card converges to normalized residual <= 1 by its own evaluation;
 # two evaluations of the residual agree to rtol 1e-12 of |F| + gross
 # (tests/test_torch_network.py), which moves the normalized residual
@@ -150,10 +176,20 @@ def rel_err(a, b) -> float:
     return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
 
 
-def check_kernels(cl, lanes: int, device) -> None:
+def check_lanes(n: int) -> int:
+    """Well-conditioned lanes of the kernel check at size n: the
+    flagship's lane count at the warp tier's n = 16 and 32 (65,536 + 1
+    leaves a partial last block), fewer above n = 128."""
+    if n in (16, 32):
+        return FLAGSHIP_LANES
+    return CHECK_LANES if n <= 128 else LARGE_CHECK_LANES
+
+
+def check_kernels(cl, device) -> None:
     """Phase 2a: each kernel against its plain version at every size."""
     import torch
     for n in SIZES:
+        lanes = check_lanes(n)
         A, b = test_matrices(lanes, n, seed=n, device=device)
         B = b[:, :, None].repeat(1, 1, 4).contiguous()
         LU, perm = cl.lu_factor(A)
@@ -280,10 +316,11 @@ def fused(spec, conds, mask, device):
     return lambda: batch.fused_sweep(spec, conds, mask, device=device)
 
 
-def abi_sweep(spec, conds, mask, device):
+def abi_sweep(spec, conds, mask, device, check_stability=True):
     from pycatkin_tpu_torch.parallel import batch
     return lambda: batch.sweep_steady_state(
-        spec, conds, mask, check_stability=True, abi=True, device=device)
+        spec, conds, mask, check_stability=check_stability, abi=True,
+        device=device)
 
 
 def lanes_over_T(base, L):
@@ -293,31 +330,31 @@ def lanes_over_T(base, L):
         T=np.linspace(400.0, 800.0, L))
 
 
-def cpu_subset(conds):
-    """SUBSET evenly spaced lanes of ``conds``: (indices, conditions)."""
+def cpu_subset(conds, size: int = SUBSET):
+    """``size`` evenly spaced lanes of ``conds``: (indices, conditions)."""
     import numpy as np
     L = len(conds.T)
-    idx = np.linspace(0, L - 1, SUBSET).round().astype(np.int64)
+    idx = np.linspace(0, L - 1, size).round().astype(np.int64)
     return idx, type(conds)(*(np.asarray(f)[idx] for f in conds))
 
 
-def envelope_gap(a, b) -> tuple:
+def envelope_gap(a, b, envelope=ENVELOPE) -> tuple:
     """(max |a - b|, max |a - b| / (atol + rtol |b|)): the second is at
     most 1 inside the envelope."""
     import torch
     d = torch.abs(a - b)
     return float(d.max()), float(torch.max(
-        d / (ENVELOPE["atol"] + ENVELOPE["rtol"] * torch.abs(b))))
+        d / (envelope["atol"] + envelope["rtol"] * torch.abs(b))))
 
 
 def profile_path(run, lanes: int, label: str) -> float:
-    """Phase 7: a warm re-run of a path, then one under torch.profiler:
+    """Phase 8: a warm re-run of a path, then one under torch.profiler:
     warm wall, device-busy share and the top device kernels by time.
     Returns the warm wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     _, counts, syncs, wall = counted(run)
-    log(f"phase 7 warm {label}: wall {wall:.3f} s, {lanes / wall:.1f} "
+    log(f"phase 8 warm {label}: wall {wall:.3f} s, {lanes / wall:.1f} "
         f"lanes/s, host syncs {syncs}, launches {counts}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -331,13 +368,13 @@ def profile_path(run, lanes: int, label: str) -> float:
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    log(f"phase 7 profile {label}: wall under the profiler {pwall:.3f} s, "
+    log(f"phase 8 profile {label}: wall under the profiler {pwall:.3f} s, "
         f"device busy {busy:.3f} s ({100.0 * busy / pwall:.1f} % of wall), "
         f"{len(kernels)} device kernels and copies")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :15]:
-        log(f"phase 7 kernel {name[:70]!r}: {t / 1e3:.1f} ms, {c} calls, "
-            f"{100.0 * t / 1e6 / busy:.1f} % of device time")
+        log(f"phase 8 kernel {label} {name[:70]!r}: {t / 1e3:.1f} ms, "
+            f"{c} calls, {100.0 * t / 1e6 / busy:.1f} % of device time")
     return wall
 
 
@@ -362,91 +399,137 @@ def cpu_normalized_residual(spec, conds, x):
     return newton._rnorm(F, gross, newton.SolverOptions())
 
 
-def fused_cpu_parity(label, spec, conds, mask, out, hold_states):
-    """256 lanes of a ``fused_sweep`` path re-run on the CPU through the
-    plain versions: verdicts equal. Where ``hold_states``, states within
-    the envelope. Else (the Gauss-Jordan route, whose states move ~1e-4
-    under a one-ulp change of its inputs) the CPU lanes run three more
-    times with T up, T down and kscale up by one ulp; the card's states,
-    TOF and activity must lie within twice the largest of those spreads,
-    and every entry of its states must pass the solver's convergence
-    test evaluated on the CPU (the standard of
-    tests/test_torch_sweep.py::test_flagship_matches_stock_jax)."""
+def one_ulp_gate(label, spec, sub, rerun, ref, out, idx, fields,
+                 envelope=None) -> str:
+    """The gate for a route whose states the reference itself does not
+    reproduce to the rtol 1e-5 / atol 1e-12 envelope: the CPU lanes
+    ``sub`` run three more times through ``rerun`` with T up, T down and
+    kscale up by one ulp. Each field (name -> getter of an output) of the
+    card's lanes ``idx`` of ``out`` must lie within twice the largest
+    spread of those runs around ``ref`` or, given an ``envelope``, within
+    it; and the card's states (field ``x``: full states ``[L, n_s]``)
+    must pass the solver's convergence test evaluated on the CPU (the
+    standard of tests/test_torch_sweep.py::test_flagship_matches_stock_jax).
+    Returns the log text."""
+    import torch
+    ulp = 1.0 + 2.0 ** -52
+    runs = [rerun(c) for c in (
+        sub._replace(T=sub.T * ulp), sub._replace(T=sub.T / ulp),
+        sub._replace(kscale=sub.kscale * ulp))]
+    parts = []
+    for name, get in fields.items():
+        r0 = get(ref)
+        spread = max(float(torch.max(torch.abs(get(r) - r0))) for r in runs)
+        gap, frac = envelope_gap(get(out)[idx].cpu(), r0,
+                                 envelope or ENVELOPE)
+        if envelope is None:
+            assert gap <= 2.0 * spread, \
+                f"{label} CPU subset parity: {name} differs by {gap}, " \
+                f"twice the one-ulp spread is {2.0 * spread}"
+            held = ""
+        else:
+            assert frac <= 1.0, \
+                f"{label} CPU subset parity: {name} differs by {gap}, " \
+                f"{frac:.3g} of the rtol {envelope['rtol']:g} / atol " \
+                f"{envelope['atol']:g} envelope"
+            held = f" ({frac:.3g} of the envelope)"
+        parts.append(f"{name} max gap {gap:.3e}{held} vs one-ulp spread "
+                     f"{spread:.3e}")
+    x = fields["x"](out)[idx].cpu()
+    rn = float(cpu_normalized_residual(spec, sub, x).max())
+    assert rn <= 1.0 + RESIDUAL_SLACK, \
+        f"{label} CPU subset parity: the card's states fail the " \
+        f"convergence test on the CPU (normalized residual {rn})"
+    return "; ".join(parts) + f"; normalized residual of the card's " \
+        f"states on the CPU {rn:.3g}"
+
+
+def fused_cpu_parity(label, spec, conds, mask, out, hold_states,
+                     subset: int = SUBSET, envelope=None):
+    """``subset`` lanes of a ``fused_sweep`` path re-run on the CPU
+    through the plain versions: verdicts equal. Where ``hold_states``,
+    states within the envelope; else :func:`one_ulp_gate` (with
+    ``envelope``) on states, TOF and activity."""
     import torch
     from pycatkin_tpu_torch.parallel import batch
-    idx, sub = cpu_subset(conds)
-    out_cpu = batch.fused_sweep(spec, sub, mask, device="cpu")
+    idx, sub = cpu_subset(conds, subset)
+    rerun = lambda c: batch.fused_sweep(spec, c, mask, device="cpu")
+    out_cpu = rerun(sub)
     v, vc = verdicts(out), verdicts(out_cpu)
     for name in v:
         assert torch.equal(v[name][idx].cpu(), vc[name]), \
             f"{label} CPU subset parity: {name} differs"
     dx, frac = envelope_gap(out[0].x[idx].cpu(), out_cpu[0].x)
+    head = (f"{label} CPU parity: {subset} lanes re-run on the CPU through "
+            f"the plain versions")
     if hold_states:
         assert frac <= 1.0, f"{label} CPU subset parity: states differ by {dx}"
-        log(f"{label} CPU parity: {SUBSET} lanes re-run on the CPU through "
-            f"the plain versions: verdicts equal, max |dx| {dx:.3e} "
-            f"({frac:.3g} of the rtol 1e-5 / atol 1e-12 envelope)")
+        log(f"{head}: verdicts equal, max |dx| {dx:.3e} ({frac:.3g} of the "
+            f"rtol 1e-5 / atol 1e-12 envelope)")
         return
-    ulp = 1.0 + 2.0 ** -52
-    runs = [batch.fused_sweep(spec, c, mask, device="cpu") for c in (
-        sub._replace(T=sub.T * ulp), sub._replace(T=sub.T / ulp),
-        sub._replace(kscale=sub.kscale * ulp))]
-    parts = []
-    for name, get in (("x", lambda o: o[0].x), ("tof", lambda o: o[4]),
-                      ("activity", lambda o: o[5])):
-        ref = get(out_cpu)
-        spread = max(float(torch.max(torch.abs(get(r) - ref)))
-                     for r in runs)
-        gap = float(torch.max(torch.abs(get(out)[idx].cpu() - ref)))
-        assert gap <= 2.0 * spread, \
-            f"{label} CPU subset parity: {name} differs by {gap}, twice " \
-            f"the one-ulp spread is {2.0 * spread}"
-        parts.append(f"{name} max gap {gap:.3e} vs one-ulp spread "
-                     f"{spread:.3e}")
-    rn = float(cpu_normalized_residual(spec, sub, out[0].x[idx].cpu()).max())
-    assert rn <= 1.0 + RESIDUAL_SLACK, \
-        f"{label} CPU subset parity: the card's states fail the " \
-        f"convergence test on the CPU (normalized residual {rn})"
-    log(f"{label} CPU parity: {SUBSET} lanes re-run on the CPU through "
-        f"the plain versions, and with T up, T down, kscale up one ulp: "
-        f"verdicts equal, max |dx| {dx:.3e} ({frac:.3g} of the rtol 1e-5 "
-        f"/ atol 1e-12 envelope); " + "; ".join(parts) + f"; normalized "
-        f"residual of the card's states on the CPU {rn:.3g}")
+    fields = {"x": lambda o: o[0].x, "tof": lambda o: o[4],
+              "activity": lambda o: o[5]}
+    gate = one_ulp_gate(label, spec, sub, rerun, out_cpu, out, idx, fields,
+                        envelope)
+    log(f"{head}, and with T up, T down, kscale up one ulp: verdicts equal, "
+        f"max |dx| {dx:.3e} ({frac:.3g} of the rtol 1e-5 / atol 1e-12 "
+        f"envelope); {gate}")
 
 
-def abi_cpu_parity(label, spec, conds, mask, out):
-    """256 lanes of an ABI path re-run on the CPU through the plain
-    versions: verdict masks equal, states within the envelope."""
+def abi_cpu_parity(label, spec, conds, mask, out, check_stability=True,
+                   hold_states=True, subset: int = SUBSET, envelope=None):
+    """``subset`` lanes of an ABI path re-run on the CPU through the plain
+    versions: verdict masks equal. Where ``hold_states``, states within
+    the envelope; else :func:`one_ulp_gate` (with ``envelope``) on
+    states, TOF and activity."""
     import torch
     from pycatkin_tpu_torch.parallel import batch
-    idx, sub = cpu_subset(conds)
-    ref = batch.sweep_steady_state(spec, sub, mask, check_stability=True,
-                                   abi=True, device="cpu")
-    for name in ("success", "stable", "quarantined"):
+    idx, sub = cpu_subset(conds, subset)
+    rerun = lambda c: batch.sweep_steady_state(
+        spec, c, mask, check_stability=check_stability, abi=True,
+        device="cpu")
+    ref = rerun(sub)
+    names = ("success", "stable", "quarantined") if check_stability \
+        else ("success", "quarantined")
+    for name in names:
         assert torch.equal(out[name][idx].cpu(), ref[name]), \
             f"{label} CPU subset parity: {name} differs"
     dx, frac = envelope_gap(out["y"][idx].cpu(), ref["y"])
-    assert frac <= 1.0, f"{label} CPU subset parity: states differ by {dx}"
     tof = out["tof"][idx].cpu()
     dtof = float(torch.max(torch.abs(tof - ref["tof"])
                            / torch.abs(ref["tof"])))
-    log(f"{label} CPU parity: {SUBSET} lanes re-run on the CPU through "
-        f"the plain versions: success, stable, quarantined equal, max "
-        f"|dy| {dx:.3e} ({frac:.3g} of the envelope), max TOF rel diff "
-        f"{dtof:.3e}")
+    head = (f"{label} CPU parity: {subset} lanes re-run on the CPU through "
+            f"the plain versions")
+    if hold_states:
+        assert frac <= 1.0, f"{label} CPU subset parity: states differ by {dx}"
+        log(f"{head}: {', '.join(names)} equal, max |dy| {dx:.3e} "
+            f"({frac:.3g} of the envelope), max TOF rel diff {dtof:.3e}")
+        return
+    fields = {"x": lambda o: o["y"], "tof": lambda o: o["tof"],
+              "activity": lambda o: o["activity"]}
+    gate = one_ulp_gate(label, spec, sub, rerun, ref, out, idx, fields,
+                        envelope)
+    log(f"{head}, and with T up, T down, kscale up one ulp: "
+        f"{', '.join(names)} equal, max |dy| {dx:.3e} ({frac:.3g} of the "
+        f"envelope), max TOF rel diff {dtof:.3e}; {gate}")
 
 
-def report_abi(label, low, L, out, counts, syncs, wall, peak):
+def report_abi(label, low, L, out, counts, syncs, wall, peak, note=""):
+    """Log an ABI run; every lane must converge (and, where the run
+    checked stability, be stable) with finite states and TOF."""
     import torch
     y = out["y"]
     assert y.shape == (L, low.n_s_real), y.shape
-    assert bool(out["success"].all()) and bool(out["stable"].all())
+    ok = out["success"] & out["stable"] if "stable" in out \
+        else out["success"]
+    assert bool(ok.all())
     assert bool(torch.isfinite(y).all())
     assert bool(torch.isfinite(out["tof"]).all())
     it = out["iterations"]
+    verdict = "converged and stable" if "stable" in out else "converged"
     log(f"{label}: S={low.static.n_species} R={low.static.n_reactions} "
         f"D={low.static.n_dynamic} lyap_ok={low.lyap_ok:.0f}, {L} lanes T "
-        f"400-800 K | converged and stable {int(out['success'].sum())} | "
+        f"400-800 K{note} | {verdict} {int(ok.sum())} | "
         f"negative TOF {int((out['tof'] < 0).sum())} | median iterations "
         f"{float(it.double().median()):.0f} max {int(it.max())} | host "
         f"syncs {syncs} | wall {wall:.3f} s, {L / wall:.1f} lanes/s, peak "
@@ -477,7 +560,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     # -- phase 2: kernels against their plain versions -----------------
-    check_kernels(cl, CHECK_LANES, device)
+    check_kernels(cl, device)
     check_gauss(device)
     log("phase 2 kernel check: all sizes passed")
 
@@ -555,18 +638,61 @@ def main() -> int:
     assert scounts["factor_solve"] > 0, scounts
     abi_cpu_parity("phase 6", sspec, sconds, smask, sout)
 
-    # -- phase 7: where the time goes -----------------------------------
+    # -- phase 7: the large path, both ways -----------------------------
+    gspec, gbase = synthetic_spec(200, 200, seed=0)
+    Lg = LARGE_LANES
+    gconds = lanes_over_T(gbase, Lg)
+    gmask = engine.tof_mask_for(gspec, [gspec.rnames[-1]])
+    g_dyn = len(gspec.dynamic_indices)
+    assert g_dyn == 165 and linalg.select_solver(g_dyn).path == "lu"
+    torch.cuda.reset_peak_memory_stats()
+    run_large = fused(gspec, gconds, gmask, device)
+    gout, gcounts, gsyncs, gwall = counted(run_large)
+    gpeak = torch.cuda.max_memory_allocated() / 2**20
+    gv = verdicts(gout)
+    log(f"phase 7 large path: synthetic(200, 200) seed 0 n_dyn={g_dyn} "
+        f"({linalg.select_solver(g_dyn).path}), {Lg} lanes T 400-800 K | "
+        f"converged {int(gv['success'].sum())} quarantined "
+        f"{int(gv['quarantined'].sum())} | median iterations "
+        f"{float(gout[0].iterations.double().median()):.0f} max "
+        f"{int(gout[0].iterations.max())} | host syncs {gsyncs} | wall "
+        f"{gwall:.3f} s, {Lg / gwall:.1f} lanes/s, peak memory "
+        f"{gpeak:.1f} MiB | launches {gcounts}")
+    assert gcounts["lu_factor"] > 0 and gcounts["lu_solve"] > 0, gcounts
+    assert bool(torch.isfinite(gout[0].x[gv["success"]]).all())
+    fused_cpu_parity("phase 7 large", gspec, gconds, gmask, gout,
+                     hold_states=False, subset=LARGE_SUBSET,
+                     envelope=LARGE_ENVELOPE)
+    glow = abi.lower_spec(gspec)
+    assert glow.static.n_dynamic == 256
+    assert linalg.select_solver(glow.static.n_dynamic).path == "lu"
+    torch.cuda.reset_peak_memory_stats()
+    run_large_abi = abi_sweep(gspec, gconds, gmask, device,
+                              check_stability=False)
+    hout, hcounts, hsyncs, hwall = counted(run_large_abi)
+    hpeak = torch.cuda.max_memory_allocated() / 2**20
+    report_abi("phase 7 large ABI path", glow, Lg, hout, hcounts, hsyncs,
+               hwall, hpeak, note=" (check_stability=False: the tier-2 "
+               "host eigensolve at n = 256 is host time, not measured here)")
+    assert hcounts["lu_factor"] > 0 and hcounts["lu_solve"] > 0, hcounts
+    abi_cpu_parity("phase 7 large ABI", gspec, gconds, gmask, hout,
+                   check_stability=False, hold_states=False,
+                   subset=LARGE_SUBSET, envelope=LARGE_ENVELOPE)
+
+    # -- phase 8: where the time goes -----------------------------------
     profile_path(run_abi, L, "ABI flagship")
+    profile_path(run_large, Lg, "large")
+    profile_path(run_large_abi, Lg, "large ABI")
     _, _, _, fwall = counted(fused(spec, conds, mask, device))
-    log(f"phase 7 warm flagship: wall {fwall:.3f} s, {L / fwall:.1f} "
+    log(f"phase 8 warm flagship: wall {fwall:.3f} s, {L / fwall:.1f} "
         f"lanes/s")
     A21, _ = test_matrices(L - 1, n_dyn, seed=3, device=device)
     inv_ms = cuda_ms(lambda: linalg.inv(A21), 3, warmup=1)
-    log(f"phase 7 Gauss-Jordan inverse (plain PyTorch) n={n_dyn} x {L} "
+    log(f"phase 8 Gauss-Jordan inverse (plain PyTorch) n={n_dyn} x {L} "
         f"lanes: {inv_ms:.3f} ms")
     del A21
 
-    # -- phase 8, kernels line: one row per kernel per path ---------------
+    # -- phase 9, kernels line: one row per kernel per path ---------------
     m = deflation_basis_for_spec(cspec).shape[1]
     assert m * m > linalg.UNROLL_MAX, m
     fs16 = time_factor_solve(cl, abi.LYAP_PAD ** 2, L, device)
@@ -575,6 +701,9 @@ def main() -> int:
     timed += [("abi_flagship", acounts, r)
               for r in time_lu(cl, low.static.n_dynamic, L, device) + [fs16]]
     timed += [("abi_certificate", scounts, fs16)]
+    timed += [("large", gcounts, r) for r in time_lu(cl, g_dyn, Lg, device)]
+    timed += [("large_abi", hcounts, r)
+              for r in time_lu(cl, glow.static.n_dynamic, Lg, device)]
     replaces = {
         "lu_factor": "pycatkin_tpu/ops/pallas_linalg.py:204",
         "lu_solve": "pycatkin_tpu/ops/pallas_linalg.py:219",
@@ -590,12 +719,23 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            path=path, n=r["n"], lanes=r["lanes"]))
+            bound_share=r["bound_ms"] / r["ms"], path=path, n=r["n"],
+            lanes=r["lanes"]))
         log(f"timing {r['name']} ({path}, {path_counts[r['name']]} "
             f"launches): n={r['n']} x {r['lanes']} lanes | kernel "
             f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms torch.linalg "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it)")
+    # Shapes on no path: the bucket-512 kernels, factor_solve above 128.
+    off_path = time_lu(cl, 512, 256, device) + [
+        time_factor_solve(cl, n, L_, device)
+        for n, L_ in ((165, Lg), (256, Lg), (512, 256))]
+    for r in off_path:
+        log(f"timing {r['name']} (no path): n={r['n']} x {r['lanes']} "
+            f"lanes | kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+            f"torch.linalg {r['library_ms']:.4f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | max abs err "
+            f"{r['max_abs_err']:.3e}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,71 +11,343 @@
 //   pk_factor_solve <- factor_solve (_factor_solve_kernel)
 //
 // Arithmetic contract (the one the Pallas bodies and
-// pycatkin_tpu/ops/linalg.py _lu_step / lu_solve share):
+// pycatkin_tpu/ops/linalg.py _lu_step / lu_solve share), at every n:
 //   * partial pivoting; the pivot of column k is the FIRST row r >= k
 //     attaining max |A[r, k]| (ties go to the smallest row index);
-//   * multipliers A[i, k] / A[k, k] are stored below the diagonal, the
-//     rank-1 update is A[i, j] - f_i * A[k, j] rounded as a separate
-//     multiply and subtract (__dmul_rn / __dsub_rn: no FMA contraction,
-//     so LU and perm match the plain PyTorch version bit for bit);
+//   * multipliers A[i, k] / A[k, k] (an IEEE division) are stored below
+//     the diagonal, the rank-1 update is A[i, j] - f_i * A[k, j] rounded
+//     as a separate multiply and subtract (__dmul_rn / __dsub_rn: no FMA
+//     contraction), one column step after another (no blocked or panel
+//     update, which would reorder the sums), so LU and perm match the
+//     plain PyTorch version bit for bit;
 //   * perm[r] is the original row now at row r (int32); solves apply
 //     b[perm], a unit-lower forward pass, then an upper backward pass.
 //   The substitution passes here are column-oriented (each finished
-//   unknown is subtracted from the rows still open), so x agrees with
-//   the row-dot recurrences of the plain version to rounding order only.
+//   unknown is subtracted from the rows still open, in ascending order
+//   forward and descending order backward), so x agrees with the
+//   row-dot recurrences of the plain version to rounding order only, and
+//   every tier below computes the same x bit for bit.
 //   A singular or NaN lane divides by a zero / NaN pivot and comes out
-//   non-finite; lanes never touch each other's data.
+//   non-finite; lanes never touch each other's data. NaN never wins a
+//   pivot search; an all-NaN column keeps row k.
 //
-// Design and what bounds it on an H100. One thread block per lane, the
-// TPU's one grid program per lane: the lane's matrix (n*n doubles, 3.5
-// KB at n = 21, 128 KB at n = 128) stays in shared memory through the
-// whole elimination, so device memory sees each input read once and
-// each output written once -- about 2*n*n*8 bytes a lane, against
-// ~(2/3)n^3 FP64 operations. At the sweep's n = 21 that is ~0.6 FLOP
-// per byte, far below the card's FP64 ridge, so the kernels are bound
-// by memory traffic in principle; in practice this first version is
-// bound by latency inside the block (n-1 dependent elimination steps,
-// each with a pivot reduction and ~3 block barriers, little
-// parallelism at small n). Later work: several lanes per block, one
-// warp per lane with register-resident rows, cp.async staging.
+// What bounds the work on an H100. A lane moves ~2*n*n*8 bytes (matrix
+// in, factors out) against ~(2/3)n^3 FP64 operations: ~1.3 operations
+// per byte at n = 32, far below the card's FP64 ridge (~20), so every
+// small-n kernel is bound by memory traffic in principle, and by the n-1
+// dependent elimination steps (latency) and the instructions each step
+// issues in practice. Three tiers:
+//
+//   * warp tier (lu_factor and factor_solve at the bucket widths n = 16
+//     and 32): one group of n threads per lane (a half-warp or a warp),
+//     eight or four lanes per 128-thread block. Thread r keeps row r in
+//     registers (n is a template argument and the loops over columns and
+//     steps are unrolled, so the row never leaves registers and no index
+//     needs a run-time bound check). Rows are never
+//     exchanged: each thread tracks its row's position in the pivoted
+//     order instead. The pivot search is an integer max-reduction
+//     (__reduce_max_sync) of the high words plus a ballot for the row
+//     attaining it (low words and positions decide ties); the pivot row
+//     travels through a per-group shared row read back with same-address
+//     (broadcast) 16-byte loads, since a shuffle moves a double as two
+//     32-bit halves. Every collective is taken by the whole warp: with a
+//     half-warp mask the card runs it once per half, one after the other.
+//     No block barrier: a warp past the last lane returns. The lane's
+//     contiguous n*n block is staged coalesced through an odd-stride
+//     shared tile, in and out. factor_solve then substitutes in
+//     registers too: each thread holds y at its row's position, and each
+//     finished unknown is broadcast by a shuffle.
+//   * block tier, resident (every other n while a lane fits the card's
+//     opt-in shared memory, n <= 169 at k = 1 on an H100): one block per
+//     lane, the
+//     matrix in shared memory at an odd row stride (so a column walk hits
+//     distinct banks), warp 0 searches the pivot, each warp divides up to
+//     32 multipliers at once and updates whole rows with its threads on
+//     the columns, three block barriers a step; factor_solve's
+//     substitution then runs in warp 0 alone (no block barriers).
+//   * block tier, in device memory (larger n): the same elimination on
+//     the lane's matrix in device memory -- in LU itself for lu_factor,
+//     in a workspace the wrapper allocates for factor_solve -- with only
+//     the permutation and the right-hand side in shared memory. It moves
+//     the trailing submatrix through L2 / HBM at every step: correct at
+//     any n, not fast (a panel design is later work, and would have to
+//     keep the column-step rounding order above).
+//   lu_solve is one block per lane at every n: the factors in device
+//   memory, the permuted right-hand side in shared memory.
+//   The right-hand sides [n, nrhs] stay in shared memory on every tier
+//   but the warp tier: lu_solve needs n*nrhs*8 bytes and a device-memory
+//   factor_solve n*nrhs*8 + 4n within the opt-in limit (227 KB on an
+//   H100, e.g. nrhs <= 56 at n = 512); a larger launch is refused with a
+//   CUDA error, which the wrappers raise. The sweep's solves take
+//   nrhs = 1.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxN = 128;
-
 __device__ __forceinline__ double upd(double a, double f, double u) {
   return __dsub_rn(a, __dmul_rn(f, u));
 }
 
-// Threads per block for systems of size n (warp 0 runs the pivot search,
-// so at least one full warp).
-inline int threads_for(int n) {
+// ---------------------------------------------------------------------
+// Warp tier: n == NP (16 or 32), one group of NP threads per lane.
+
+constexpr int kWarpTierThreads = 128;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Collectives over this thread's group of NP lanes, taken by the whole
+// warp at once (all its threads call them together): a collective with a
+// half-warp mask runs once per half-warp group, one after the other.
+//
+// The maximum of `v` over the group; a half-warp group reduces the warp
+// twice, the other half contributing `neutral`.
+template <int NP, typename T>
+__device__ __forceinline__ T group_max(T v, T neutral) {
+  if constexpr (NP == 32) {
+    return __reduce_max_sync(kFullWarp, v);
+  } else {
+    const bool upper = (threadIdx.x & 16) != 0;
+    const T lower_max = __reduce_max_sync(kFullWarp, upper ? neutral : v);
+    const T upper_max = __reduce_max_sync(kFullWarp, upper ? v : neutral);
+    return upper ? upper_max : lower_max;
+  }
+}
+
+// Whether `pred` holds anywhere in the warp (a branch on it is taken by
+// both half-warp groups together); a whole-warp group's ballot already
+// is warp-uniform.
+template <int NP>
+__device__ __forceinline__ bool warp_any(bool pred) {
+  if constexpr (NP == 32) {
+    return pred;
+  } else {
+    return __any_sync(kFullWarp, pred);
+  }
+}
+
+// Bit i set where `pred` holds on the group's i-th thread.
+template <int NP>
+__device__ __forceinline__ unsigned group_ballot(bool pred) {
+  const unsigned bits = __ballot_sync(kFullWarp, pred);
+  if constexpr (NP == 32) {
+    return bits;
+  } else {
+    return (bits >> (threadIdx.x & 16)) & 0xffffu;
+  }
+}
+
+// Factor each lane of A [lanes, NP, NP]. Without kSolve the factors go
+// to LU and the permutation to perm; with kSolve b [lanes, NP, nrhs] is
+// solved into x and the factors never leave registers.
+//
+// Rows are never exchanged: thread r keeps row r and its position `pos`
+// in the pivoted order. Step k swaps the positions of the pivot row and
+// the row at position k, and every row at a position past k takes the
+// update -- the operations the exchanging algorithm applies to each row,
+// in the same order, so LU and perm come out bit for bit the same.
+template <int NP, bool kSolve>
+__device__ __forceinline__ void lu_warp(const double* __restrict__ A,
+                                        double* __restrict__ LU,
+                                        int* __restrict__ perm,
+                                        const double* __restrict__ b,
+                                        double* __restrict__ x,
+                                        long long lanes, int nrhs) {
+  constexpr int n = NP;
+  constexpr int LD = NP + 1;  // odd tile stride: row reads hit distinct banks
+  extern __shared__ double smem[];
+  const int g = threadIdx.x / NP;
+  const int r = threadIdx.x % NP;  // the row this thread keeps
+  const long long first =
+      static_cast<long long>(blockIdx.x) * (kWarpTierThreads / NP);
+  // The last block's spare warps return; a spare half-warp group still
+  // takes part in its warp's collectives but touches no memory.
+  if (first + (threadIdx.x & ~31) / NP >= lanes) return;
+  const long long lane = first + g;
+  const bool live = lane < lanes;
+  double* tile = smem + g * NP * LD;
+  constexpr long long nn = static_cast<long long>(n) * n;
+
+  // Stage the lane's contiguous block row by row (coalesced) through the
+  // tile, every load in flight at once, then each thread takes its own
+  // row into registers.
+  if (live) {
+    const double* src = A + lane * nn;
+#pragma unroll
+    for (int i = 0; i < n; ++i) tile[i * LD + r] = src[i * n + r];
+  }
+  __syncwarp();
+  double a[NP];
+#pragma unroll
+  for (int j = 0; j < n; ++j) a[j] = live ? tile[r * LD + j] : 0.0;
+  __syncwarp();
+
+  // From here the tile holds the pivot row, double-buffered by the parity
+  // of the step, so one __syncwarp a step orders its write before the
+  // reads of the same step and after the reads two steps back.
+  int pos = r;
+#pragma unroll
+  for (int k = 0; k < n - 1; ++k) {
+    // Pivot: max |a_rk| over the rows at positions k..n-1, the first
+    // position on a tie; NaN is no candidate. A non-negative double
+    // orders as its (high word, low word) pair, so a max-reduction of
+    // the high words decides unless they tie. The tie branches are
+    // taken by the whole warp when either of its groups needs them.
+    // Non-candidates take -2 and the row at position k -1 (so an
+    // all-NaN column keeps it).
+    const double v = fabs(a[k]);
+    const bool cand = pos >= k && v > -1.0;
+    const int hi = cand ? __double2hiint(v) : (pos == k ? -1 : -2);
+    const int max_hi = group_max<NP>(hi, -2);  // (never short-circuited)
+    bool top = hi == max_hi;
+    unsigned hit = group_ballot<NP>(top);
+    if (warp_any<NP>(hit & (hit - 1))) {
+      const unsigned lo =
+          top ? static_cast<unsigned>(__double2loint(v)) : 0u;
+      const unsigned max_lo = group_max<NP>(lo, 0u);
+      top = top && lo == max_lo;
+      hit = group_ballot<NP>(top);
+      if (warp_any<NP>(hit & (hit - 1))) {
+        const int key = top ? NP - pos : 0;  // the first position wins
+        const int max_key = group_max<NP>(key, 0);
+        top = top && key == max_key;
+        hit = group_ballot<NP>(top);
+      }
+    }
+    const int q = __ffs(static_cast<int>(hit)) - 1;
+    const int q_pos = __shfl_sync(kFullWarp, pos, q, NP);
+    if (pos == k) pos = q_pos;
+    if (r == q) pos = k;
+    // The pivot row's columns k.. go to the tile, read back with
+    // same-address 16-byte loads.
+    double* pb = tile + (k & 1) * NP;
+    if (r == q) {
+#pragma unroll
+      for (int j = k & ~1; j < NP; j += 2)
+        reinterpret_cast<double2*>(pb)[j >> 1] = make_double2(a[j], a[j + 1]);
+    }
+    __syncwarp();
+    if (pos > k) {
+      const double f = a[k] / pb[k];
+      a[k] = f;
+#pragma unroll
+      for (int j = (k + 1) & ~1; j < NP; j += 2) {
+        const double2 u = reinterpret_cast<const double2*>(pb)[j >> 1];
+        if (j > k) a[j] = upd(a[j], f, u.x);
+        a[j + 1] = upd(a[j + 1], f, u.y);
+      }
+    }
+  }
+
+  if constexpr (!kSolve) {
+    __syncwarp();  // the last step's pivot row is read; reuse the tile
+#pragma unroll
+    for (int j = 0; j < n; ++j) tile[pos * LD + j] = a[j];
+    __syncwarp();
+    if (live) {
+      double* dst = LU + lane * nn;
+#pragma unroll
+      for (int i = 0; i < n; ++i) dst[i * n + r] = tile[i * LD + r];
+      perm[lane * n + pos] = r;
+    }
+  } else {
+    // Thread r holds y at its row's position, b[r] to begin with (b[perm]
+    // in pivoted order), and each finished unknown is broadcast from the
+    // thread at its position (at[i], the inverse permutation, gathered
+    // once through the tile); the update order is lu_solve_kernel's.
+    int* inv = reinterpret_cast<int*>(tile + 2 * NP);
+    inv[pos] = r;
+    __syncwarp();
+    int at[NP];
+#pragma unroll
+    for (int i = 0; i < n; ++i) at[i] = inv[i];
+    const long long nk = static_cast<long long>(n) * nrhs;
+    for (int c = 0; c < nrhs; ++c) {
+      double y =
+          live ? b[lane * nk + static_cast<long long>(r) * nrhs + c] : 0.0;
+#pragma unroll
+      for (int i = 0; i < n - 1; ++i) {
+        const double yi = __shfl_sync(kFullWarp, y, at[i], NP);
+        if (pos > i) y = upd(y, a[i], yi);
+      }
+#pragma unroll
+      for (int i = n - 1; i >= 0; --i) {
+        if (pos == i) y = y / a[i];
+        const double yi = __shfl_sync(kFullWarp, y, at[i], NP);
+        if (pos < i) y = upd(y, a[i], yi);
+      }
+      if (live) x[lane * nk + static_cast<long long>(pos) * nrhs + c] = y;
+    }
+  }
+}
+
+template <int NP, bool kSolve>
+__global__ void __launch_bounds__(kWarpTierThreads)
+lu_warp_kernel(const double* __restrict__ A, double* __restrict__ LU,
+               int* __restrict__ perm, const double* __restrict__ b,
+               double* __restrict__ x, long long lanes, int nrhs) {
+  lu_warp<NP, kSolve>(A, LU, perm, b, x, lanes, nrhs);
+}
+
+// lu_factor at n = 32 (the ABI flagship's direction solves): at most 102
+// registers a thread, so five blocks share an SM (a few spilled values
+// cost less than the lost occupancy, on an H100).
+__global__ void __launch_bounds__(kWarpTierThreads, 5)
+lu_factor_warp32_kernel(const double* __restrict__ A, double* __restrict__ LU,
+                        int* __restrict__ perm, long long lanes) {
+  lu_warp<32, false>(A, LU, perm, nullptr, nullptr, lanes, 0);
+}
+
+// ---------------------------------------------------------------------
+// Block tier: one block per lane.
+
+// Threads per block of the solve (warp 0 runs the pivot search, so at
+// least one full warp) and of the block-tier factorization.
+inline int solve_threads(int n) {
   if (n <= 16) return 64;
   if (n <= 32) return 128;
   return 256;
 }
 
-// In-place partial-pivoted LU of one lane's row-major [n, n] matrix `a`
-// in shared memory. `perm` ([n] int, shared) receives the permutation,
-// `f` ([n] double, shared) is scratch for the column multipliers.
-__device__ void factor_lane(double* a, int* perm, double* f, int n) {
+// Six 256-thread blocks fit an SM's registers (at most 42 a thread): at
+// n = 64 shared memory admits six lanes an SM, and the registers must too.
+constexpr int min_blocks(int threads) { return threads == 256 ? 6 : 1; }
+
+// Row stride of a matrix resident in shared memory: odd, so the 8-byte
+// entries of one column fall on distinct bank pairs.
+__host__ __device__ inline int smem_ld(int n) { return n | 1; }
+
+// Copy an n x n matrix between row strides: warps over rows, threads
+// over columns (coalesced).
+__device__ void copy_matrix(const double* src, int lds, double* dst, int ldd,
+                            int n) {
+  const int nw = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < n; i += nw)
+    for (int j = threadIdx.x & 31; j < n; j += 32)
+      dst[i * ldd + j] = src[i * lds + j];
+}
+
+// In-place partial-pivoted LU of one lane's [n, n] matrix `a` (row
+// stride `ld`; shared or device memory). `perm` ([n] int, shared)
+// receives the permutation. Expects `a` complete (a barrier after the
+// load); ends with a barrier.
+__device__ void factor_lane(double* a, int ld, int* perm, int n) {
   __shared__ int s_pivot;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nw = nt >> 5;
   for (int i = tid; i < n; i += nt) perm[i] = i;
-  __syncthreads();
   for (int k = 0; k < n - 1; ++k) {
-    if (tid < 32) {
-      // Each lane of warp 0 scans rows k+tid, k+tid+32, ... in
+    if (warp == 0) {
+      // Each lane of warp 0 scans rows k+lane, k+lane+32, ... in
       // increasing order keeping the first maximum; the shuffle
       // reduction then prefers the larger value, the smaller row on a
       // tie. NaN entries never win; an all-NaN column keeps row k.
       double best = -1.0;
       int row = n;
-      for (int r = k + tid; r < n; r += 32) {
-        const double v = fabs(a[r * n + k]);
+      for (int r = k + lane; r < n; r += 32) {
+        const double v = fabs(a[r * ld + k]);
         if (v > best) {
           best = v;
           row = r;
@@ -89,15 +361,15 @@ __device__ void factor_lane(double* a, int* perm, double* f, int n) {
           row = orow;
         }
       }
-      if (tid == 0) s_pivot = row < n ? row : k;
+      if (lane == 0) s_pivot = row < n ? row : k;
     }
     __syncthreads();
     const int p = s_pivot;
     if (p != k) {
       for (int j = tid; j < n; j += nt) {
-        const double t = a[k * n + j];
-        a[k * n + j] = a[p * n + j];
-        a[p * n + j] = t;
+        const double t = a[k * ld + j];
+        a[k * ld + j] = a[p * ld + j];
+        a[p * ld + j] = t;
       }
       if (tid == 0) {
         const int t = perm[k];
@@ -106,24 +378,37 @@ __device__ void factor_lane(double* a, int* perm, double* f, int n) {
       }
       __syncthreads();
     }
-    const double pivot = a[k * n + k];
-    for (int i = k + 1 + tid; i < n; i += nt) f[i] = a[i * n + k] / pivot;
-    __syncthreads();
-    const int cols = n - k;
-    const int count = (n - k - 1) * cols;
-    for (int e = tid; e < count; e += nt) {
-      const int i = k + 1 + e / cols;
-      const int j = k + e % cols;
-      a[i * n + j] = (j == k) ? f[i] : upd(a[i * n + j], f[i], a[k * n + j]);
+    // Warp w updates rows k+1+w, k+1+w+nw, ...: for up to 32 of them at
+    // a time, each thread divides one row's column-k entry (the divisions
+    // run in parallel) and stores the multiplier over it; then, row by
+    // row, the multiplier is broadcast and the threads walk the columns.
+    const double* u = a + k * ld;
+    const double pivot = u[k];
+    for (int base = k + 1 + warp; base < n; base += 32 * nw) {
+      const int mine = base + lane * nw;
+      double f = 0.0;
+      if (mine < n) {
+        f = a[mine * ld + k] / pivot;
+        a[mine * ld + k] = f;
+      }
+      const int rows = min(32, (n - base + nw - 1) / nw);
+#pragma unroll 4
+      for (int t = 0; t < rows; ++t) {
+        const double ft = __shfl_sync(0xffffffffu, f, t);
+        double* row = a + (base + t * nw) * ld;
+        for (int j = k + 1 + lane; j < n; j += 32)
+          row[j] = upd(row[j], ft, u[j]);
+      }
     }
     __syncthreads();
   }
 }
 
-// Solve (LU) x = y in place for one lane: `lu` is the row-major [n, n]
-// factorization (shared or device memory), `y` the permuted right-hand
-// sides [n, nrhs] in shared memory.
-__device__ void solve_lane(const double* lu, double* y, int n, int nrhs) {
+// Solve (LU) x = y in place for one lane: `lu` is the [n, n]
+// factorization at row stride `ld` (shared or device memory), `y` the
+// permuted right-hand sides [n, nrhs] in shared memory.
+__device__ void solve_lane(const double* lu, int ld, double* y, int n,
+                           int nrhs) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   for (int i = 0; i < n - 1; ++i) {
@@ -131,39 +416,77 @@ __device__ void solve_lane(const double* lu, double* y, int n, int nrhs) {
     for (int e = tid; e < count; e += nt) {
       const int j = i + 1 + e / nrhs;
       const int c = e % nrhs;
-      y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * n + i], y[i * nrhs + c]);
+      y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], y[i * nrhs + c]);
     }
     __syncthreads();
   }
   for (int i = n - 1; i >= 0; --i) {
-    const double d = lu[i * n + i];
+    const double d = lu[i * ld + i];
     for (int c = tid; c < nrhs; c += nt) y[i * nrhs + c] = y[i * nrhs + c] / d;
     __syncthreads();
     const int count = i * nrhs;
     for (int e = tid; e < count; e += nt) {
       const int j = e / nrhs;
       const int c = e % nrhs;
-      y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * n + i], y[i * nrhs + c]);
+      y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], y[i * nrhs + c]);
     }
     __syncthreads();
   }
 }
 
-__global__ void lu_factor_kernel(const double* __restrict__ A,
-                                 double* __restrict__ LU,
-                                 int* __restrict__ perm, int n) {
+// solve_lane's arithmetic, in the same order, run by warp 0 alone: no
+// block barrier per step, only __syncwarp (the other warps idle).
+__device__ void solve_lane_warp(const double* lu, int ld, double* y, int n,
+                                int nrhs) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  for (int c = 0; c < nrhs; ++c) {
+    for (int i = 0; i < n - 1; ++i) {
+      const double yi = y[i * nrhs + c];
+      for (int j = i + 1 + lane; j < n; j += 32)
+        y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], yi);
+      __syncwarp();
+    }
+    for (int i = n - 1; i >= 0; --i) {
+      if (lane == 0) y[i * nrhs + c] = y[i * nrhs + c] / lu[i * ld + i];
+      __syncwarp();
+      const double yi = y[i * nrhs + c];
+      for (int j = lane; j < i; j += 32)
+        y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], yi);
+      __syncwarp();
+    }
+  }
+}
+
+// y = b[perm] for one lane (shared memory), then a barrier.
+__device__ void gather_rhs(const double* bl, const int* p, double* y, int n,
+                           int nrhs) {
+  for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) {
+    const int r = e / nrhs;
+    const int c = e % nrhs;
+    y[e] = bl[p[r] * nrhs + c];
+  }
+  __syncthreads();
+}
+
+// kResident: the matrix lives in shared memory; else it is factored in
+// place in LU. (A template argument, so the compiler knows which memory
+// each access goes to.)
+template <int kThreads, bool kResident>
+__global__ void __launch_bounds__(kThreads, min_blocks(kThreads))
+lu_factor_kernel(const double* __restrict__ A, double* LU,
+                 int* __restrict__ perm, int n) {
   extern __shared__ double smem[];
-  double* a = smem;
-  double* f = a + n * n;
-  int* p = reinterpret_cast<int*>(f + n);
   const long long lane = blockIdx.x;
   const long long nn = static_cast<long long>(n) * n;
-  const double* src = A + lane * nn;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) a[e] = src[e];
-  __syncthreads();
-  factor_lane(a, p, f, n);
   double* dst = LU + lane * nn;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) dst[e] = a[e];
+  const int ld = kResident ? smem_ld(n) : n;
+  double* a = kResident ? smem : dst;
+  int* p = reinterpret_cast<int*>(kResident ? smem + n * ld : smem);
+  copy_matrix(A + lane * nn, n, a, ld, n);
+  __syncthreads();
+  factor_lane(a, ld, p, n);
+  if (kResident) copy_matrix(a, ld, dst, n, n);
   for (int i = threadIdx.x; i < n; i += blockDim.x) perm[lane * n + i] = p[i];
 }
 
@@ -175,49 +498,39 @@ __global__ void lu_solve_kernel(const double* __restrict__ LU,
   double* y = smem;
   const long long lane = blockIdx.x;
   const long long nk = static_cast<long long>(n) * nrhs;
-  const int* pl = perm + lane * n;
-  const double* bl = b + lane * nk;
-  for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) {
-    const int r = e / nrhs;
-    const int c = e % nrhs;
-    y[e] = bl[pl[r] * nrhs + c];
-  }
-  __syncthreads();
-  solve_lane(LU + lane * static_cast<long long>(n) * n, y, n, nrhs);
+  gather_rhs(b + lane * nk, perm + lane * n, y, n, nrhs);
+  solve_lane(LU + lane * static_cast<long long>(n) * n, n, y, n, nrhs);
   double* xl = x + lane * nk;
   for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) xl[e] = y[e];
 }
 
-__global__ void factor_solve_kernel(const double* __restrict__ A,
-                                    const double* __restrict__ b,
-                                    double* __restrict__ x, int n,
-                                    int nrhs) {
+// kResident: the matrix lives in shared memory; else it is factored in
+// the lane's n*n slice of `work` (device memory).
+template <int kThreads, bool kResident>
+__global__ void __launch_bounds__(kThreads, min_blocks(kThreads))
+factor_solve_kernel(const double* __restrict__ A,
+                    const double* __restrict__ b, double* __restrict__ x,
+                    double* work, int n, int nrhs) {
   extern __shared__ double smem[];
-  double* a = smem;
-  double* f = a + n * n;
-  double* y = f + n;
-  int* p = reinterpret_cast<int*>(y + n * nrhs);
   const long long lane = blockIdx.x;
   const long long nn = static_cast<long long>(n) * n;
   const long long nk = static_cast<long long>(n) * nrhs;
-  const double* src = A + lane * nn;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) a[e] = src[e];
+  const int ld = kResident ? smem_ld(n) : n;
+  double* a = kResident ? smem : work + lane * nn;
+  double* y = kResident ? smem + n * ld : smem;
+  int* p = reinterpret_cast<int*>(y + n * nrhs);
+  copy_matrix(A + lane * nn, n, a, ld, n);
   __syncthreads();
-  factor_lane(a, p, f, n);
-  const double* bl = b + lane * nk;
-  for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) {
-    const int r = e / nrhs;
-    const int c = e % nrhs;
-    y[e] = bl[p[r] * nrhs + c];
-  }
-  __syncthreads();
-  solve_lane(a, y, n, nrhs);
+  factor_lane(a, ld, p, n);
+  gather_rhs(b + lane * nk, p, y, n, nrhs);
+  solve_lane_warp(a, ld, y, n, nrhs);
+  if (threadIdx.x >= 32) return;
   double* xl = x + lane * nk;
-  for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) xl[e] = y[e];
+  for (int e = threadIdx.x; e < n * nrhs; e += 32) xl[e] = y[e];
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when the
-// lane needs it (n = 128 needs ~130 KB).
+// launch needs it (refused above the card's opt-in limit).
 template <typename K>
 cudaError_t reserve_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -226,62 +539,142 @@ cudaError_t reserve_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Dynamic shared memory one block may opt into on the current device
+// (232,448 bytes on an H100); 0 when the device cannot be queried.
+long long smem_optin() {
+  int dev = 0;
+  int bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+// Shared memory of one block-tier factorization (nrhs = 0 for
+// lu_factor): the resident matrix, the right-hand sides, the
+// permutation.
+long long factor_smem(int n, int nrhs, bool resident) {
+  const long long mat = resident ? static_cast<long long>(n) * smem_ld(n) : 0;
+  return (mat + static_cast<long long>(n) * nrhs) * 8 + n * 4LL;
+}
+
+// Block-tier launches: 256 threads a lane up to n = 128, 512 above while
+// the matrix stays in shared memory, 1,024 on the device-memory tier.
+template <int T, bool R>
+cudaError_t launch_lu_factor(const double* A, double* LU, int* perm,
+                             long long lanes, int n, size_t bytes,
+                             cudaStream_t stream) {
+  cudaError_t err = reserve_smem(lu_factor_kernel<T, R>, bytes);
+  if (err != cudaSuccess) return err;
+  lu_factor_kernel<T, R><<<static_cast<unsigned int>(lanes), T, bytes,
+                           stream>>>(A, LU, perm, n);
+  return cudaGetLastError();
+}
+
+template <int T, bool R>
+cudaError_t launch_factor_solve(const double* A, const double* b, double* x,
+                                double* work, long long lanes, int n,
+                                int nrhs, size_t bytes, cudaStream_t stream) {
+  cudaError_t err = reserve_smem(factor_solve_kernel<T, R>, bytes);
+  if (err != cudaSuccess) return err;
+  factor_solve_kernel<T, R><<<static_cast<unsigned int>(lanes), T, bytes,
+                              stream>>>(A, b, x, work, n, nrhs);
+  return cudaGetLastError();
+}
+
+// The warp tier at n == NP.
+template <int NP, bool kSolve>
+cudaError_t launch_warp(const double* A, double* LU, int* perm,
+                        const double* b, double* x, long long lanes,
+                        int nrhs, cudaStream_t stream) {
+  constexpr int per_block = kWarpTierThreads / NP;
+  const size_t bytes = sizeof(double) * kWarpTierThreads * (NP + 1);
+  const unsigned int grid =
+      static_cast<unsigned int>((lanes + per_block - 1) / per_block);
+  if constexpr (NP == 32 && !kSolve) {
+    cudaError_t err = reserve_smem(lu_factor_warp32_kernel, bytes);
+    if (err != cudaSuccess) return err;
+    lu_factor_warp32_kernel<<<grid, kWarpTierThreads, bytes, stream>>>(
+        A, LU, perm, lanes);
+  } else {
+    cudaError_t err = reserve_smem(lu_warp_kernel<NP, kSolve>, bytes);
+    if (err != cudaSuccess) return err;
+    lu_warp_kernel<NP, kSolve><<<grid, kWarpTierThreads, bytes, stream>>>(
+        A, LU, perm, b, x, lanes, nrhs);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int pk_max_n() { return kMaxN; }
-
-// Shared memory a lane of each kernel needs, in bytes (the wrapper
-// checks it against the card's per-block limit before launching).
-long long pk_lu_factor_smem(int n) {
-  return (static_cast<long long>(n) * n + n) * 8 + n * 4;
-}
-
-long long pk_lu_solve_smem(int n, int nrhs) {
-  return static_cast<long long>(n) * nrhs * 8;
-}
-
-long long pk_factor_solve_smem(int n, int nrhs) {
-  return (static_cast<long long>(n) * n + n + static_cast<long long>(n) *
-          nrhs) * 8 + n * 4;
+// Device workspace factor_solve needs, in doubles per lane: n*n where
+// the lane's matrix does not fit shared memory, else 0.
+long long pk_factor_solve_workspace(int n, int nrhs) {
+  if (n == 16 || n == 32) return 0;
+  return factor_smem(n, nrhs, true) > smem_optin()
+             ? static_cast<long long>(n) * n
+             : 0;
 }
 
 int pk_lu_factor(const double* A, double* LU, int* perm, long long lanes,
                  int n, void* stream) {
-  if (n < 1 || n > kMaxN || lanes < 1) return cudaErrorInvalidValue;
-  const size_t bytes = static_cast<size_t>(pk_lu_factor_smem(n));
-  cudaError_t err = reserve_smem(lu_factor_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  lu_factor_kernel<<<static_cast<unsigned int>(lanes), threads_for(n), bytes,
-                     static_cast<cudaStream_t>(stream)>>>(A, LU, perm, n);
-  return cudaGetLastError();
+  if (n < 1 || lanes < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 16)
+    return launch_warp<16, false>(A, LU, perm, nullptr, nullptr, lanes, 0, s);
+  if (n == 32)
+    return launch_warp<32, false>(A, LU, perm, nullptr, nullptr, lanes, 0, s);
+  const long long limit = smem_optin();
+  if (limit <= 0) return cudaErrorInvalidDevice;
+  const bool resident = factor_smem(n, 0, true) <= limit;
+  const size_t bytes = static_cast<size_t>(factor_smem(n, 0, resident));
+  if (!resident)
+    return launch_lu_factor<1024, false>(A, LU, perm, lanes, n, bytes, s);
+  if (n <= 128)
+    return launch_lu_factor<256, true>(A, LU, perm, lanes, n, bytes, s);
+  return launch_lu_factor<512, true>(A, LU, perm, lanes, n, bytes, s);
 }
 
 int pk_lu_solve(const double* LU, const int* perm, const double* b,
                 double* x, long long lanes, int n, int nrhs, void* stream) {
-  if (n < 1 || n > kMaxN || nrhs < 1 || lanes < 1)
-    return cudaErrorInvalidValue;
-  const size_t bytes = static_cast<size_t>(pk_lu_solve_smem(n, nrhs));
+  if (n < 1 || nrhs < 1 || lanes < 1) return cudaErrorInvalidValue;
+  const size_t bytes = static_cast<size_t>(n) * nrhs * 8;
   cudaError_t err = reserve_smem(lu_solve_kernel, bytes);
   if (err != cudaSuccess) return err;
-  lu_solve_kernel<<<static_cast<unsigned int>(lanes), threads_for(n), bytes,
+  lu_solve_kernel<<<static_cast<unsigned int>(lanes), solve_threads(n), bytes,
                     static_cast<cudaStream_t>(stream)>>>(LU, perm, b, x, n,
                                                          nrhs);
   return cudaGetLastError();
 }
 
+// `work`: pk_factor_solve_workspace(n, nrhs) doubles per lane, or
+// nullptr where that is 0.
 int pk_factor_solve(const double* A, const double* b, double* x,
-                    long long lanes, int n, int nrhs, void* stream) {
-  if (n < 1 || n > kMaxN || nrhs < 1 || lanes < 1)
-    return cudaErrorInvalidValue;
-  const size_t bytes = static_cast<size_t>(pk_factor_solve_smem(n, nrhs));
-  cudaError_t err = reserve_smem(factor_solve_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  factor_solve_kernel<<<static_cast<unsigned int>(lanes), threads_for(n),
-                        bytes, static_cast<cudaStream_t>(stream)>>>(
-      A, b, x, n, nrhs);
-  return cudaGetLastError();
+                    double* work, long long lanes, int n, int nrhs,
+                    void* stream) {
+  if (n < 1 || nrhs < 1 || lanes < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 16)
+    return launch_warp<16, true>(A, nullptr, nullptr, b, x, lanes, nrhs, s);
+  if (n == 32)
+    return launch_warp<32, true>(A, nullptr, nullptr, b, x, lanes, nrhs, s);
+  const long long limit = smem_optin();
+  if (limit <= 0) return cudaErrorInvalidDevice;
+  const bool resident = factor_smem(n, nrhs, true) <= limit;
+  if (!resident && work == nullptr) return cudaErrorInvalidValue;
+  const size_t bytes = static_cast<size_t>(factor_smem(n, nrhs, resident));
+  if (!resident)
+    return launch_factor_solve<1024, false>(A, b, x, work, lanes, n, nrhs,
+                                            bytes, s);
+  if (n <= 128)
+    return launch_factor_solve<256, true>(A, b, x, nullptr, lanes, n, nrhs,
+                                          bytes, s);
+  return launch_factor_solve<512, true>(A, b, x, nullptr, lanes, n, nrhs,
+                                        bytes, s);
 }
 
 }  // extern "C"

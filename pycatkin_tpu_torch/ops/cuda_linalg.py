@@ -22,6 +22,17 @@ in plain PyTorch) and a CUDA tensor to the kernel. A CUDA tensor is
 never served by the plain version: a kernel that cannot launch raises.
 Each launch adds one to :data:`LAUNCHES`.
 
+The kernels serve every n. ``lu_factor`` and ``factor_solve`` pick a
+tier by n (``csrc/linalg.cu``): a warp (n = 32) or half-warp (n = 16)
+per lane with rows in registers; at every other n one block per lane
+with the matrix in shared memory while it fits the card's opt-in limit
+(n <= 169 at k = 1 on an H100), and beyond that one block per lane on
+the matrix in device memory (in ``LU`` itself, or in a workspace this
+module allocates for ``factor_solve``). Off the warp tier the k
+right-hand sides stay in shared memory: ``n * k * 8`` bytes (plus
+``4 n`` for ``factor_solve``) must fit that limit (k <= 56 at n = 512
+on an H100); a larger k is refused by the launch, which raises.
+
 The kernels are compiled from the package's own source on first use
 (``nvcc`` for ``sm_90a`` into ``build/pycatkin_tpu_torch/`` beside the
 package, keyed by a hash of the source) and bound with ``ctypes``.
@@ -38,10 +49,6 @@ import tempfile
 from pathlib import Path
 
 import torch
-
-#: Largest n the kernels serve: a lane's matrix must fit one block's
-#: shared memory. n = 512 needs the blocked design (ROADMAP, Queue B).
-MAX_N = 128
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"lu_factor": 0, "lu_solve": 0, "factor_solve": 0}
@@ -110,19 +117,11 @@ def _lib():
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.pk_lu_factor.argtypes = [vp, vp, vp, ll, ci, vp]
         lib.pk_lu_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
-        lib.pk_factor_solve.argtypes = [vp, vp, vp, ll, ci, ci, vp]
-        lib.pk_lu_factor_smem.argtypes = [ci]
-        lib.pk_lu_solve_smem.argtypes = [ci, ci]
-        lib.pk_factor_solve_smem.argtypes = [ci, ci]
-        for fn in (lib.pk_lu_factor, lib.pk_lu_solve, lib.pk_factor_solve,
-                   lib.pk_max_n):
+        lib.pk_factor_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
+        lib.pk_factor_solve_workspace.argtypes = [ci, ci]
+        for fn in (lib.pk_lu_factor, lib.pk_lu_solve, lib.pk_factor_solve):
             fn.restype = ci
-        for fn in (lib.pk_lu_factor_smem, lib.pk_lu_solve_smem,
-                   lib.pk_factor_solve_smem):
-            fn.restype = ll
-        if lib.pk_max_n() != MAX_N:
-            raise RuntimeError("csrc/linalg.cu and cuda_linalg.MAX_N "
-                               "disagree")
+        lib.pk_factor_solve_workspace.restype = ll
         _LIB = lib
     return _LIB
 
@@ -161,10 +160,6 @@ def _route(name, A) -> bool:
         return False
     if A.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {A.device}")
-    if A.shape[-1] > MAX_N:
-        raise NotImplementedError(
-            f"{name}: n = {A.shape[-1]} > {MAX_N} needs the blocked "
-            "kernel (ROADMAP, Queue B item 4: bucket 512)")
     return True
 
 
@@ -176,15 +171,6 @@ def _raise_on(name, err):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
-
-
-def _smem_check(name, need):
-    props = torch.cuda.get_device_properties(torch.cuda.current_device())
-    # Hopper's opt-in limit (227 KB) where the property is not exposed.
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if need > limit:
-        raise ValueError(f"{name}: a lane needs {need} B of shared memory, "
-                         f"the card allows {limit} B per block")
 
 
 # ----------------------------------------------------------------------
@@ -253,7 +239,6 @@ def lu_factor(A):
         return LU, perm
     lib = _lib()
     with torch.cuda.device(A.device):
-        _smem_check("lu_factor", lib.pk_lu_factor_smem(n))
         err = lib.pk_lu_factor(A.data_ptr(), LU.data_ptr(), perm.data_ptr(),
                                L, n, _stream(A))
     _raise_on("lu_factor", err)
@@ -279,7 +264,6 @@ def lu_solve(LU, perm, b):
         return x
     lib = _lib()
     with torch.cuda.device(LU.device):
-        _smem_check("lu_solve", lib.pk_lu_solve_smem(n, k))
         err = lib.pk_lu_solve(LU.data_ptr(), perm.data_ptr(), b.data_ptr(),
                               x.data_ptr(), L, n, k, _stream(LU))
     _raise_on("lu_solve", err)
@@ -289,8 +273,8 @@ def lu_solve(LU, perm, b):
 
 def factor_solve(A, b):
     """Factor and solve ``A x = b`` for every lane in one kernel; the
-    matrix stays in shared memory between the two passes. ``b`` is
-    ``[L, n]`` or ``[L, n, k]``."""
+    factors stay on the chip (registers or shared memory) between the two
+    passes wherever the lane fits. ``b`` is ``[L, n]`` or ``[L, n, k]``."""
     _check_matrix("factor_solve", A)
     _check_rhs("factor_solve", A, b)
     if not _route("factor_solve", A):
@@ -302,8 +286,11 @@ def factor_solve(A, b):
         return x
     lib = _lib()
     with torch.cuda.device(A.device):
-        _smem_check("factor_solve", lib.pk_factor_solve_smem(n, k))
+        per_lane = lib.pk_factor_solve_workspace(n, k)
+        work = torch.empty(L * per_lane, dtype=A.dtype, device=A.device) \
+            if per_lane else None
         err = lib.pk_factor_solve(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                  None if work is None else work.data_ptr(),
                                   L, n, k, _stream(A))
     _raise_on("factor_solve", err)
     LAUNCHES["factor_solve"] += 1

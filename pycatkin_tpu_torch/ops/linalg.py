@@ -16,8 +16,7 @@ the tier a TPU resolves to; the path names are the JAX seam's:
   partial-pivot arithmetic as its Pallas kernels).
 
 The :mod:`cuda_linalg` wrappers launch the CUDA kernels on CUDA tensors
-(n <= 128; larger n raises ``NotImplementedError``, ROADMAP Queue B
-item 4) and run their plain PyTorch versions on CPU tensors.
+(at every n) and run their plain PyTorch versions on CPU tensors.
 
 :func:`scaling_solve` keeps the scaling-relation solve off the seam, as
 the JAX package does: Gauss-Jordan up to :data:`UNROLL_MAX`, LU beyond.

@@ -114,7 +114,9 @@ def test_lowering_flags_the_certificate_buckets():
 def test_bucket_512_mechanisms_pad_to_d_256(shape, n_dyn):
     """The largest synthetic mechanisms that fit the 512-species bucket
     pad their dynamic block to D = 256: not a kernel bucket, so their
-    solves take the LU route, which raises on a CUDA tensor (n > 128)."""
+    solves take the LU route, which on a CUDA tensor runs the kernels'
+    device-memory tier (the lane's 256 x 256 matrix exceeds shared
+    memory)."""
     sj = synthetic_system(*shape, seed=0).spec
     low = abi.lower_spec(_port_spec(sj))
     assert jabi.select_static(sj) == low.static

@@ -44,22 +44,39 @@ def test_kernels_match_plain_versions_on_the_card(device, n, k):
     xf = cl.factor_solve(A, b)
     torch.cuda.synchronize()
     assert cl.LAUNCHES == {"lu_factor": 1, "lu_solve": 1, "factor_solve": 1}
+    _hold_to_contract(A, b, LU, perm, x, xf, slice(0, 64))
+    assert not bool(torch.isfinite(x[-1]).all())
+    assert not bool(torch.isfinite(xf[-1]).all())
+
+
+def _hold_to_contract(A, b, LU, perm, x, xf, good):
     LUr, permr = cl.lu_factor_ref(A)
     xr = cl.lu_solve_ref(LUr, permr, b)
-    good = slice(0, 64)
     assert torch.equal(perm[good], permr[good])
     assert torch.equal(LU[good], LUr[good])
     scale = float(xr[good].abs().max())
     assert float((x[good] - xr[good]).abs().max()) <= 1e-12 * scale
     assert float((xf[good] - xr[good]).abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("n", [165, 256, 512])
+def test_kernels_serve_large_n_on_the_card(device, n):
+    """Above n = 128: n = 165 stays in shared memory, 256 and 512 take
+    the device-memory tier (factor_solve through its workspace)."""
+    A, b = _systems(5, n, None, device)
+    cl.reset_launches()
+    LU, perm = cl.lu_factor(A)
+    x = cl.lu_solve(LU, perm, b)
+    xf = cl.factor_solve(A, b)
+    torch.cuda.synchronize()
+    assert cl.LAUNCHES == {"lu_factor": 1, "lu_solve": 1, "factor_solve": 1}
+    _hold_to_contract(A, b, LU, perm, x, xf, slice(0, 4))
     assert not bool(torch.isfinite(x[-1]).all())
     assert not bool(torch.isfinite(xf[-1]).all())
 
 
 def test_kernels_refuse_what_they_do_not_serve(device):
-    A, b = _systems(2, cl.MAX_N + 1, None, device)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        cl.lu_factor(A)
+    A, b = _systems(2, 8, None, device)
     with pytest.raises(TypeError, match="float64"):
         cl.factor_solve(A[:, :4, :4].float().contiguous(), b[:, :4].float())
 
@@ -107,3 +124,40 @@ def test_abi_sweep_on_the_card_matches_the_cpu(device, shape):
     for k in ("success", "stable", "quarantined", "iterations"):
         assert torch.equal(gpu[k].cpu(), cpu[k]), k
     assert torch.allclose(gpu["y"].cpu(), cpu["y"], rtol=1e-5, atol=1e-12)
+
+
+def test_large_mechanism_sweep_on_the_card_matches_the_cpu(device):
+    """Synthetic (200, 200): n_dyn = 165 > 128, the LU route, on the
+    card's kernels; 4 lanes against the CPU. Verdicts equal; states, TOF
+    and activity within rtol 1e-5 / atol 1e-9 (chip_smoke.py's
+    LARGE_ENVELOPE: the card's states sit ~4e-11 from the CPU's on this
+    mechanism, its LU bit for bit); and the card's states pass the
+    solver's convergence test evaluated on the CPU (normalized residual
+    <= 1, plus the 1e-3 two evaluations of it may differ by)."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import newton
+
+    spec, base = synthetic_spec(200, 200, seed=0)
+    assert len(spec.dynamic_indices) == 165
+    conds = batch.broadcast_conditions(base, 4)._replace(
+        T=np.linspace(400.0, 800.0, 4))
+    mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
+    cl.reset_launches()
+    gpu = batch.fused_sweep(spec, conds, mask, device=device)
+    assert cl.LAUNCHES["lu_factor"] > 0 and cl.LAUNCHES["lu_solve"] > 0
+    cpu = batch.fused_sweep(spec, conds, mask, device="cpu")
+    for i in (1, 2, 3, 6):
+        assert torch.equal(gpu[i].cpu(), cpu[i]), i
+    assert torch.equal(gpu[0].success.cpu(), cpu[0].success)
+    assert bool(cpu[0].success.all())
+    for g, c in ((gpu[0].x, cpu[0].x), (gpu[4], cpu[4]), (gpu[5], cpu[5])):
+        assert torch.allclose(g.cpu(), c, rtol=1e-5, atol=1e-9)
+    ds = engine.bind(spec, "cpu")
+    ct = engine.conditions_to(conds, "cpu")
+    kf, kr, _ = engine.rate_constants(ds, ct)
+    F, gross = engine.closures(ds, ct, kf, kr).fscale(
+        gpu[0].x.cpu()[:, list(spec.dynamic_indices)])
+    rn = newton._rnorm(F, gross, newton.SolverOptions())
+    assert float(rn.max()) <= 1.0 + 1e-3

@@ -1,15 +1,21 @@
 """The CUDA kernels' own source, run on the CPU.
 
 ``pycatkin_tpu_torch/csrc/linalg.cu`` is compiled here with the host C++
-compiler against a small emulation of the CUDA features it uses: each
-thread block runs as ``blockDim.x`` real threads with real barriers
-(``__syncthreads``), warp shuffles go through a shared slot array, and
-launches run the blocks one after another. That exercises the kernels'
-indexing, pivot reduction and barrier placement without a card; the
-results are held against the plain PyTorch versions with the same
-contract as on the card (perm equal, LU bit for bit, x within 1e-12
-relative, a singular lane non-finite). Skips when no C++20 compiler is
-installed."""
+compiler against a small emulation of the CUDA features it uses. Each
+thread block runs as ``blockDim.x`` fibers on one host thread, each
+fiber running until it waits at a barrier: ``__syncthreads`` for the
+block, and per warp one barrier for the whole warp and one for each
+half-warp (the masks ``__syncwarp`` and the collectives are given).
+Shuffles, ballots and reductions (with a ``width`` where CUDA has one)
+go through per-warp slot arrays; a thread that returns drops out of its
+barriers, and a block in which every thread waits aborts. Launches run
+the blocks one after another. That exercises the kernels' indexing,
+pivot search and barrier placement without a card -- blocks of several
+warps, half-warp lanes, a partial last block, the shared-memory and
+device-memory tiers -- and the results are held against the plain
+PyTorch versions with the same contract as on the card (perm equal, LU
+bit for bit, x within 1e-12 relative, a singular lane non-finite and its
+neighbours untouched). Skips when no host C++ compiler is installed."""
 
 import ctypes
 import re
@@ -24,60 +30,264 @@ from pycatkin_tpu_torch.ops import cuda_linalg as cl
 
 EMULATION_HEADER = r"""
 #pragma once
-#include <barrier>
+#include <ucontext.h>
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
+#include <cstdint>
+#include <cstring>
 #include <functional>
-#include <thread>
+#include <memory>
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
+#define __launch_bounds__(...)
+using std::min;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidDevice = 101 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
 struct dim3v { unsigned x = 0, y = 0, z = 0; };
-inline thread_local dim3v threadIdx;
+struct double2 { double x, y; };
+inline double2 make_double2(double x, double y) { return {x, y}; }
+// Every CUDA thread of a block is a fiber; the fibers of one block take
+// turns on one host thread, each running until it waits at a barrier.
+// On x86-64 a switch saves the callee-saved registers and swaps stacks
+// (glibc's swapcontext also makes a system call for the signal mask).
+struct Fiber {
+  ucontext_t ctx;
+  void* sp = nullptr;
+  dim3v tid;
+  bool done = false;
+};
+inline Fiber* g_cur = nullptr;
+inline ucontext_t g_scheduler;
+inline void* g_scheduler_sp = nullptr;
+inline long long g_progress = 0;
+#define threadIdx (g_cur->tid)
 inline dim3v blockIdx, blockDim;
-inline std::barrier<>* g_block = nullptr;
-inline std::barrier<>* g_warp = nullptr;
-inline double g_slot_d[32];
-inline int g_slot_i[32];
-inline double g_smem[1 << 15];
+#if defined(__x86_64__)
+extern "C" void emu_switch(void** save_sp, void* load_sp);
+asm(R"(
+  .text
+  .p2align 4
+  .hidden emu_switch
+  .globl emu_switch
+  .type emu_switch, @function
+emu_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_switch, .-emu_switch
+)");
+inline void yield_fiber() { emu_switch(&g_cur->sp, g_scheduler_sp); }
+inline void run_fiber(Fiber& f) { emu_switch(&g_scheduler_sp, f.sp); }
+#else
+inline void yield_fiber() { swapcontext(&g_cur->ctx, &g_scheduler); }
+inline void run_fiber(Fiber& f) { swapcontext(&g_scheduler, &f.ctx); }
+#endif
+struct Barrier {
+  int expected, count = 0;
+  unsigned generation = 0;
+  explicit Barrier(int n) : expected(n) {}
+  void release() { count = 0; ++generation; ++g_progress; }
+  void arrive_and_wait() {
+    const unsigned mine = generation;
+    ++g_progress;
+    if (++count == expected) return release();
+    while (generation == mine) yield_fiber();
+  }
+  void drop() {  // a thread that returned no longer takes part
+    --expected;
+    if (count > 0 && count == expected) release();
+  }
+};
+// One barrier for the block, and per warp one for the whole warp and one
+// for each half (the masks __syncwarp and the shuffles are given); a
+// thread that returns drops out of all of them, as on the card.
+struct Warp {
+  Barrier full{32}, half0{16}, half1{16};
+  double slot_d[32];
+  int slot_i[32];
+  unsigned slot_u[32];
+};
+inline Barrier* g_block = nullptr;
+inline std::vector<std::unique_ptr<Warp>> g_warps;
+inline double g_smem[232448 / 8];
+inline Warp& my_warp() { return *g_warps[threadIdx.x / 32]; }
+inline Barrier& group_barrier(unsigned mask) {
+  Warp& w = my_warp();
+  if (mask == 0xffffffffu) return w.full;
+  if (mask == 0x0000ffffu) return w.half0;
+  if (mask == 0xffff0000u) return w.half1;
+  std::abort();
+}
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
-template <class T> T shfl(T* slot, T v, int off) {
-  const int l = threadIdx.x;
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  group_barrier(mask).arrive_and_wait();
+}
+inline int __ffs(int v) { return __builtin_ffs(v); }
+// Lane l of the warp reads the value lane src(l) put in the slot.
+template <class T, class F> T exchange(unsigned mask, T* slot, T v, F src) {
+  const int l = threadIdx.x % 32;
+  auto& bar = group_barrier(mask);
   slot[l] = v;
-  g_warp->arrive_and_wait();
-  T r = (l + off < 32) ? slot[l + off] : v;
-  g_warp->arrive_and_wait();
+  bar.arrive_and_wait();
+  T r = slot[src(l)];
+  bar.arrive_and_wait();
   return r;
 }
-inline double __shfl_down_sync(unsigned, double v, int off) {
-  return shfl(g_slot_d, v, off);
+template <class T> T* slots(Warp& w);
+template <> inline double* slots<double>(Warp& w) { return w.slot_d; }
+template <> inline int* slots<int>(Warp& w) { return w.slot_i; }
+template <class T> T __shfl_down_sync(unsigned mask, T v, int off) {
+  return exchange(mask, slots<T>(my_warp()), v,
+                  [&](int l) { return l + off < 32 ? l + off : l; });
 }
-inline int __shfl_down_sync(unsigned, int v, int off) {
-  return shfl(g_slot_i, v, off);
+template <class T> T __shfl_xor_sync(unsigned mask, T v, int off, int w) {
+  return exchange(mask, slots<T>(my_warp()), v,
+                  [&](int l) { return l ^ (off & (w - 1)); });
+}
+template <class T> T __shfl_sync(unsigned mask, T v, int src, int w = 32) {
+  return exchange(mask, slots<T>(my_warp()), v,
+                  [&](int l) { return (l & ~(w - 1)) | (src & (w - 1)); });
+}
+template <class T> T __reduce_max_sync(unsigned mask, T v) {
+  Warp& w = my_warp();
+  T* slot = reinterpret_cast<T*>(w.slot_u);
+  const int l = threadIdx.x % 32;
+  auto& bar = group_barrier(mask);
+  slot[l] = v;
+  bar.arrive_and_wait();
+  T m = v;
+  for (int i = 0; i < 32; ++i)
+    if (((mask >> i) & 1u) && slot[i] > m) m = slot[i];
+  bar.arrive_and_wait();
+  return m;
+}
+template <class T> T __reduce_min_sync(unsigned mask, T v) {
+  return -__reduce_max_sync(mask, -v);
+}
+inline int __double2hiint(double d) {
+  long long b;
+  std::memcpy(&b, &d, 8);
+  return static_cast<int>(b >> 32);
+}
+inline int __double2loint(double d) {
+  long long b;
+  std::memcpy(&b, &d, 8);
+  return static_cast<int>(b & 0xffffffffLL);
+}
+inline unsigned __ballot_sync(unsigned mask, bool pred);
+inline bool __any_sync(unsigned mask, bool pred) {
+  return __ballot_sync(mask, pred) != 0;
+}
+inline unsigned __ballot_sync(unsigned mask, bool pred) {
+  Warp& w = my_warp();
+  const int l = threadIdx.x % 32;
+  auto& bar = group_barrier(mask);
+  w.slot_u[l] = pred ? 1u : 0u;
+  bar.arrive_and_wait();
+  unsigned bits = 0;
+  for (int i = 0; i < 32; ++i)
+    if ((mask >> i) & 1u) bits |= w.slot_u[i] << i;
+  bar.arrive_and_wait();
+  return bits;
 }
 template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute,
-                                                    int) { return 0; }
+                                                    int bytes) {
+  return bytes <= static_cast<int>(sizeof(g_smem)) ? 0
+                                                   : cudaErrorInvalidValue;
+}
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// The H100's opt-in limit, so the tiers switch where they do on the card.
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 232448;
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
+// Runs the blocks one after another, each with fresh barriers; aborts
+// if every thread of a block waits and none can go on.
+inline std::function<void()>* g_body = nullptr;
+inline void fiber_main() {
+  (*g_body)();
+  g_cur->done = true;
+  Warp& w = my_warp();
+  g_block->drop();
+  w.full.drop();
+  (g_cur->tid.x % 32 < 16 ? w.half0 : w.half1).drop();
+  yield_fiber();
+}
 inline void emu_launch(long long grid, int nt, std::function<void()> body) {
-  std::barrier<> block(nt), warp(32);
-  g_block = &block;
-  g_warp = &warp;
+  constexpr size_t kStack = 64 * 1024;
+  std::vector<char> stacks(kStack * nt);
+  g_body = &body;
   blockDim.x = nt;
   for (long long b = 0; b < grid; ++b) {
+    Barrier block(nt);
+    g_block = &block;
+    g_warps.clear();
+    for (int w = 0; w < nt / 32; ++w)
+      g_warps.push_back(std::make_unique<Warp>());
     blockIdx.x = static_cast<unsigned>(b);
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; ++t)
-      ts.emplace_back([&, t] { threadIdx.x = t; body(); });
-    for (auto& th : ts) th.join();
+    std::vector<Fiber> fibers(nt);
+    for (int t = 0; t < nt; ++t) {
+      Fiber& f = fibers[t];
+      f.tid.x = t;
+#if defined(__x86_64__)
+      // A fresh stack emu_switch can "return" into fiber_main from: six
+      // register slots, then fiber_main's address, 16-byte aligned as a
+      // call would leave it.
+      auto top = reinterpret_cast<std::uintptr_t>(stacks.data() +
+                                                  kStack * (t + 1));
+      auto* sp = reinterpret_cast<void**>((top & ~std::uintptr_t{15}) - 8);
+      *--sp = reinterpret_cast<void*>(&fiber_main);
+      for (int i = 0; i < 6; ++i) *--sp = nullptr;
+      f.sp = sp;
+#else
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = stacks.data() + kStack * t;
+      f.ctx.uc_stack.ss_size = kStack;
+      f.ctx.uc_link = nullptr;
+      makecontext(&f.ctx, fiber_main, 0);
+#endif
+    }
+    for (int alive = nt; alive > 0;) {
+      const long long before = g_progress;
+      alive = 0;
+      for (Fiber& f : fibers) {
+        if (f.done) continue;
+        g_cur = &f;
+        run_fiber(f);
+        if (!f.done) ++alive;
+      }
+      if (alive > 0 && g_progress == before) {
+        std::fprintf(stderr, "emulation: every thread waits (deadlock)\n");
+        std::abort();
+      }
+    }
   }
 }
 """
@@ -91,7 +301,7 @@ def emulated(tmp_path_factory):
     d = tmp_path_factory.mktemp("kernel_emulation")
     (d / "cuda_runtime.h").write_text(EMULATION_HEADER)
     src = cl.SOURCE.read_text()
-    src = re.sub(r"(\w+)<<<(.*?),(.*?),(.*?),(.*?)>>>\((.*?)\);",
+    src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?),(.*?),(.*?),(.*?)>>>\((.*?)\);",
                  lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, "
                             f"[&] {{ {m.group(1)}({m.group(6)}); }});"),
                  src, flags=re.S)
@@ -103,22 +313,64 @@ def emulated(tmp_path_factory):
         [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{d}", "-o",
          str(so), str(d / "linalg_emu.cpp"), "-lpthread"],
         capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0 and "barrier" in proc.stderr:
-        pytest.skip("host C++ compiler lacks std::barrier (C++20)")
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(so))
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.pk_lu_factor.argtypes = [vp, vp, vp, ll, ci, vp]
     lib.pk_lu_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
-    lib.pk_factor_solve.argtypes = [vp, vp, vp, ll, ci, ci, vp]
-    assert lib.pk_max_n() == cl.MAX_N
+    lib.pk_factor_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
+    lib.pk_factor_solve_workspace.argtypes = [ci, ci]
+    lib.pk_factor_solve_workspace.restype = ll
     return lib
+
+
+GUARD = 3   # lanes past the end of every output, which no kernel may touch
+
+
+def _run_kernels(lib, At, bt):
+    """All three kernels on every lane: (LU, perm, x, x of factor_solve).
+    Each output has GUARD more lanes than the launch is given, filled
+    with a sentinel that must survive."""
+    L, n = At.shape[0], At.shape[-1]
+    nrhs = 1 if bt.dim() == 2 else bt.shape[2]
+    outs = [torch.full((L + GUARD,) + tuple(t.shape[1:]), -7.0,
+                       dtype=t.dtype) for t in (At, bt, bt)]
+    perm = torch.full((L + GUARD, n), -7, dtype=torch.int32)
+    LU, x, xf = outs
+    per_lane = lib.pk_factor_solve_workspace(n, nrhs)
+    work = torch.empty(L * per_lane, dtype=torch.float64)
+    assert lib.pk_lu_factor(At.data_ptr(), LU.data_ptr(), perm.data_ptr(),
+                            L, n, None) == 0
+    assert lib.pk_lu_solve(LU.data_ptr(), perm.data_ptr(), bt.data_ptr(),
+                           x.data_ptr(), L, n, nrhs, None) == 0
+    assert lib.pk_factor_solve(At.data_ptr(), bt.data_ptr(), xf.data_ptr(),
+                               work.data_ptr() if per_lane else None, L, n,
+                               nrhs, None) == 0
+    for t in (LU, perm, x, xf):
+        assert bool((t[L:] == -7).all()), "a kernel wrote past its lanes"
+    return LU[:L], perm[:L], x[:L], xf[:L]
+
+
+def _hold_to_contract(At, bt, out, good, bad=()):
+    """perm equal, LU bit for bit, x within 1e-12 relative on the lanes
+    ``good``; factor_solve's x is lu_solve's bit for bit; the lanes
+    ``bad`` come out non-finite."""
+    LU, perm, x, xf = out
+    LUr, permr = cl.lu_factor_ref(At)
+    xr = cl.lu_solve_ref(LUr, permr, bt)
+    assert torch.equal(perm[good], permr[good])
+    assert torch.equal(LU[good], LUr[good])
+    scale = float(xr[good].abs().max())
+    assert float((x[good] - xr[good]).abs().max()) <= 1e-12 * scale
+    assert torch.equal(xf[good], x[good])
+    for i in bad:
+        assert not bool(torch.isfinite(x[i]).all())
+        assert not bool(torch.isfinite(xf[i]).all())
 
 
 @pytest.mark.parametrize("n,k", [(1, None), (5, None), (5, 3), (21, None),
                                  (21, 3), (33, None)])
 def test_kernel_source_matches_plain_versions(emulated, n, k):
-    lib = emulated
     rng = np.random.default_rng(n)
     L = 3
     A = rng.standard_normal((L, n, n)) + 2.0 * n * np.eye(n)
@@ -128,32 +380,73 @@ def test_kernel_source_matches_plain_versions(emulated, n, k):
     At = torch.tensor(A)
     bt = torch.tensor(rng.standard_normal((L, n) if k is None
                                           else (L, n, k)))
-    nrhs = 1 if k is None else k
-    LU = torch.empty_like(At)
-    perm = torch.empty((L, n), dtype=torch.int32)
-    x = torch.empty_like(bt)
-    xf = torch.empty_like(bt)
-    assert lib.pk_lu_factor(At.data_ptr(), LU.data_ptr(), perm.data_ptr(),
-                            L, n, None) == 0
-    assert lib.pk_lu_solve(LU.data_ptr(), perm.data_ptr(), bt.data_ptr(),
-                           x.data_ptr(), L, n, nrhs, None) == 0
-    assert lib.pk_factor_solve(At.data_ptr(), bt.data_ptr(), xf.data_ptr(),
-                               L, n, nrhs, None) == 0
-    LUr, permr = cl.lu_factor_ref(At)
-    xr = cl.lu_solve_ref(LUr, permr, bt)
-    good = slice(0, 2) if n > 1 else slice(0, 3)
-    assert torch.equal(perm[good], permr[good])
-    assert torch.equal(LU[good], LUr[good])
-    scale = float(xr[good].abs().max())
-    assert float((x[good] - xr[good]).abs().max()) <= 1e-12 * scale
-    assert torch.equal(xf[good], x[good])
+    out = _run_kernels(emulated, At, bt)
     if n > 1:
-        assert not bool(torch.isfinite(x[2]).all())
-        assert not bool(torch.isfinite(xf[2]).all())
+        _hold_to_contract(At, bt, out, slice(0, 2), bad=(2,))
+    else:
+        _hold_to_contract(At, bt, out, slice(0, 3))
+
+
+def _tie_matrix(rng, n):
+    """A well-conditioned matrix of small integers: many equal entries in
+    each column, so the first-maximum pivot rule decides."""
+    while True:
+        M = rng.integers(-2, 3, (n, n)).astype(np.float64)
+        if np.linalg.cond(M) < 1e6:
+            return M
+
+
+@pytest.mark.parametrize("n,k", [(16, None), (32, None), (16, 2), (32, 3)])
+def test_warp_tier_isolates_lanes_of_a_block(emulated, n, k):
+    """The warp tier (n = 16 or 32, 8 or 4 lanes a block): 11 lanes leave a
+    partial last block; lane 5, in the middle of the second block of 4
+    (or the first of 8), is singular and lane 6 all NaN; lanes 2 and 9
+    have tied column maxima, and lane 3 a first column whose two largest
+    entries differ only in their low 32 bits, the larger one further
+    down. Every other lane matches the plain version exactly as the
+    contract says."""
+    rng = np.random.default_rng(100 + n)
+    L = 11
+    A = rng.standard_normal((L, n, n)) + 2.0 * n * np.eye(n)
+    for i in (1, 4, 8, 10):
+        A[i] = A[i][rng.permutation(n)]
+    A[2], A[9] = _tie_matrix(rng, n), _tie_matrix(rng, n)
+    A[3, :, 0] *= 0.01
+    A[3, 0, 0], A[3, n - 2, 0] = 2.0 * n, 2.0 * n * (1.0 + 2.0 ** -40)
+    A[5, :, n // 2] = 0.0
+    A[6] = np.nan
+    At = torch.tensor(A)
+    bt = torch.tensor(rng.standard_normal((L, n) if k is None
+                                          else (L, n, k)))
+    out = _run_kernels(emulated, At, bt)
+    good = [i for i in range(L) if i not in (5, 6)]
+    _hold_to_contract(At, bt, out, good, bad=(5, 6))
+    assert not bool(torch.isfinite(out[0][5]).all())
+
+
+@pytest.mark.parametrize("n", [64, 170], ids=["shared", "device"])
+def test_block_tier_pivots_on_updated_columns(emulated, n):
+    """The block tier on Gaussian matrices without a dominant diagonal,
+    so every pivot search reads columns the previous step updated: at
+    n = 64 in shared memory, and at n = 170, where one lane's matrix
+    (231 KB with the permutation) no longer fits the H100's 227 KB of
+    shared memory, so lu_factor works in LU and factor_solve in its
+    workspace. Lane 1 is singular."""
+    L = 2
+    lib = emulated
+    assert lib.pk_factor_solve_workspace(169, 1) == 0
+    assert lib.pk_factor_solve_workspace(n, 1) == (n * n if n > 169 else 0)
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((L, n, n))
+    A[1, :, n // 2] = 0.0
+    At, bt = torch.tensor(A), torch.tensor(rng.standard_normal((L, n)))
+    _hold_to_contract(At, bt, _run_kernels(lib, At, bt), [0], bad=(1,))
 
 
 def test_kernel_entry_points_reject_bad_sizes(emulated):
     lib = emulated
-    assert lib.pk_lu_factor(None, None, None, 1, cl.MAX_N + 1, None) != 0
+    assert lib.pk_lu_factor(None, None, None, 1, 0, None) != 0
     assert lib.pk_lu_solve(None, None, None, None, 1, 4, 0, None) != 0
-    assert lib.pk_factor_solve(None, None, None, 0, 4, 1, None) != 0
+    assert lib.pk_factor_solve(None, None, None, None, 0, 4, 1, None) != 0
+    # A lane too large for shared memory needs its workspace.
+    assert lib.pk_factor_solve(None, None, None, None, 1, 200, 1, None) != 0

@@ -143,8 +143,7 @@ def test_wrappers_check_their_arguments():
 def test_select_solver_policy(monkeypatch):
     """The seam picks the JAX package's path for every n under the
     Pallas tier (the TPU's); the wrappers then take the plain version
-    for CPU tensors, the kernel for CUDA tensors up to MAX_N, and raise
-    NotImplementedError above it."""
+    for CPU tensors and the kernel for CUDA tensors, at every n."""
     monkeypatch.setenv(precision.KERNEL_ENV, "pallas")
     for n in list(range(1, 131)) + [256, 512]:
         assert linalg.select_solver(n).path == \
@@ -154,14 +153,13 @@ def test_select_solver_policy(monkeypatch):
                                                              512]
     lane = lambda dev, n: SimpleNamespace(device=torch.device(dev),
                                           shape=(1, n, n))
-    assert cl._route("lu_factor", lane("cpu", cl.MAX_N + 1)) is False
-    assert cl._route("lu_factor", lane("cuda", cl.MAX_N)) is True
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        cl._route("factor_solve", lane("cuda", cl.MAX_N + 1))
+    for n in (1, 32, 128, 129, 165, 256, 512):
+        assert cl._route("lu_factor", lane("cpu", n)) is False
+        assert cl._route("factor_solve", lane("cuda", n)) is True
     with pytest.raises(ValueError, match="unsupported device"):
         cl._route("lu_solve", lane("meta", 4))
-    # The CPU path has no size limit (plain versions).
-    A, b = _systems(cl.MAX_N + 2, lanes=1, seed=5)
+    # The CPU path has no size limit either (plain versions).
+    A, b = _systems(130, lanes=1, seed=5)
     x = linalg.solve(_t(A), _t(b))
     assert _rel(x, np.linalg.solve(A, b[..., None])[..., 0]) <= 1e-10
 
