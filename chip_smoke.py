@@ -8,12 +8,15 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
 2. kernel check: every kernel (``lu_factor``, ``lu_solve``,
    ``factor_solve``) against its plain PyTorch version on the card, at
    n = 16, 32 (the warp tier), 9, 21, 64, 128 (the shared-memory block
-   tier), 165 (the largest shapes in shared memory) and 256, 512 (the
-   device-memory tier), with well-conditioned lanes plus one singular
-   lane (perm equal, LU and x within 1e-12 relative, the singular lane
-   non-finite). At n = 16 and 32 the check takes 65,537 lanes, which
-   leaves the warp tier a partial last block. Then the plain-PyTorch
-   Gauss-Jordan route (n = 8, 21) on the card against the CPU;
+   tier), 165 (the largest shapes in shared memory) and 170, 200, 256,
+   512 (the panel tier, the matrix in device memory: 170 is its first n
+   at k = 1, 200 leaves a last panel of 8 columns), with
+   well-conditioned lanes plus one singular lane: perm and LU equal to
+   the plain version's (``torch.equal``), x within 1e-12 relative, the
+   singular lane non-finite. At n = 16 and 32 the check takes 65,537
+   lanes, which leaves the warp tier a partial last block. Then the
+   plain-PyTorch Gauss-Jordan route (n = 8, 21) on the card against the
+   CPU;
 3. flagship path: ``fused_sweep`` on the synthetic 24-species /
    32-reaction mechanism, 65,536 lanes with T from 400 to 800 K. Its
    n = 21 direction solves take Gauss-Jordan, as in the JAX package, so
@@ -44,7 +47,7 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    ``lu_solve``: ``fused_sweep`` (n_dyn = 165 > 128, the LU route, the
    matrix in shared memory) and ``sweep_steady_state(abi=True,
    check_stability=False)`` (S = 512, D = 256, the LU route on the
-   device-memory tier). The tier-2 host eigensolve at n = 256 is left
+   panel tier). The tier-2 host eigensolve at n = 256 is left
    out: it is host time this phase does not measure. 16 lanes of each
    re-run on the CPU: verdicts equal; states, TOF and activity within
    rtol 1e-5 / atol 1e-9 (:data:`LARGE_ENVELOPE`), and the card's
@@ -56,8 +59,9 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    top device kernels); the flagship re-run warm; the Gauss-Jordan
    inverse timed at the flagship's shape;
 9. each kernel timed at the shapes each path gives it, beside its plain
-   version and the matching ``torch.linalg`` call; then, on no path,
-   the three kernels at n = 512 and ``factor_solve`` at n = 165, 256.
+   version, the matching ``torch.linalg`` call, its bound and the FP64
+   vector floor (see :func:`vector_floor_ms`); then, on no path, the
+   three kernels at n = 512 and ``factor_solve`` at n = 165, 256.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
@@ -83,7 +87,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, 34 TFLOP/s on the FP64 vector units) and its HBM3 rate.
 PEAK_FP64_FLOPS = 67.0e12
 PEAK_BYTES_PER_S = 3.35e12
-SIZES = (9, 16, 21, 32, 64, 128, 165, 256, 512)
+# FP64 vector instructions an H100 SXM issues a second: 132 SMs x 64
+# FP64 units x 1.98 GHz boost clock (the data sheet's 34 TFLOP/s counts
+# an FMA as two operations).
+FP64_VECTOR_INSTR_PER_S = 132 * 64 * 1.98e9
+SIZES = (9, 16, 21, 32, 64, 128, 165, 170, 200, 256, 512)
 KERNEL_TOL = 1e-12
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
@@ -149,6 +157,19 @@ def solve_flops(n: int, k: int = 1) -> float:
     return float(k * (2 * n * n - n))
 
 
+def lu_updates(n: int) -> float:
+    """Rank-1 update entries of one partial-pivoted LU."""
+    return float(sum(m * m for m in range(1, n)))
+
+
+def vector_floor_ms(updates: float) -> float:
+    """Least time for ``updates`` multiply-subtracts on the FP64 vector
+    units when each must round twice (the kernels' contract forbids FMA,
+    so the FP64 tensor cores, whose DMMA fuses the multiply-add, are out):
+    two instructions per update."""
+    return 2.0 * updates / FP64_VECTOR_INSTR_PER_S * 1e3
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP64_FLOPS * 1e3
@@ -198,7 +219,9 @@ def check_kernels(cl, device) -> None:
         good = slice(0, lanes)
         assert torch.equal(perm[good], permr[good]), f"lu_factor n={n}: perm"
         e_lu = rel_err(LU[good], LUr[good])
-        assert e_lu <= KERNEL_TOL, f"lu_factor n={n}: LU rel err {e_lu}"
+        assert torch.equal(LU[good], LUr[good]), \
+            f"lu_factor n={n}: LU differs from the plain version's (rel " \
+            f"err {e_lu})"
         errs = {}
         for name, rhs in (("vec", b), ("mat", B)):
             x = cl.lu_solve(LU, perm, rhs)
@@ -217,9 +240,9 @@ def check_kernels(cl, device) -> None:
                     f"n={n} {name}: a well-conditioned lane is non-finite"
             errs[name] = max(e1, e2)
         assert not bool(torch.isfinite(LU[-1]).all())
-        log(f"kernel check n={n}: {lanes}+1 lanes, perm equal, LU rel err "
-            f"{e_lu:.2e}, x rel err vec {errs['vec']:.2e} mat "
-            f"{errs['mat']:.2e}, singular lane non-finite")
+        log(f"kernel check n={n}: {lanes}+1 lanes, perm and LU equal, x rel "
+            f"err vec {errs['vec']:.2e} mat {errs['mat']:.2e}, singular "
+            f"lane non-finite")
 
 
 def time_lu(cl, n: int, L: int, device) -> list:
@@ -238,7 +261,8 @@ def time_lu(cl, n: int, L: int, device) -> list:
     bms, by = bound(L * (2 * n * n * 8 + n * 4), L * lu_flops(n))
     rows = [dict(name="lu_factor", n=n, lanes=L, max_abs_err=lu_err, ms=ms,
                  plain_ms=plain, bound_ms=bms, bound_by=by,
-                 library_ms=lib)]
+                 library_ms=lib,
+                 vector_floor_ms=vector_floor_ms(L * lu_updates(n)))]
 
     x = cl.lu_solve(LU, perm, b)
     xr = cl.lu_solve_ref(LUr, permr, b)
@@ -252,7 +276,8 @@ def time_lu(cl, n: int, L: int, device) -> list:
                     L * solve_flops(n))
     rows.append(dict(name="lu_solve", n=n, lanes=L, max_abs_err=sol_err,
                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                     library_ms=lib))
+                     library_ms=lib,
+                     vector_floor_ms=vector_floor_ms(L * (n * n - n))))
     return rows
 
 
@@ -271,7 +296,8 @@ def time_factor_solve(cl, n: int, L: int, device) -> dict:
                     L * (lu_flops(n) + solve_flops(n)))
     return dict(name="factor_solve", n=n, lanes=L, max_abs_err=fs_err,
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                library_ms=lib)
+                library_ms=lib, vector_floor_ms=vector_floor_ms(
+                    L * (lu_updates(n) + n * n - n)))
 
 
 def check_gauss(device) -> None:
@@ -725,7 +751,8 @@ def main() -> int:
             f"launches): n={r['n']} x {r['lanes']} lanes | kernel "
             f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms torch.linalg "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it)")
+            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it) FP64 "
+            f"vector floor {r['vector_floor_ms']:.4f} ms")
     # Shapes on no path: the bucket-512 kernels, factor_solve above 128.
     off_path = time_lu(cl, 512, 256, device) + [
         time_factor_solve(cl, n, L_, device)
@@ -734,7 +761,8 @@ def main() -> int:
         log(f"timing {r['name']} (no path): n={r['n']} x {r['lanes']} "
             f"lanes | kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"torch.linalg {r['library_ms']:.4f} ms bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | max abs err "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) FP64 vector floor "
+            f"{r['vector_floor_ms']:.4f} ms | max abs err "
             f"{r['max_abs_err']:.3e}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -17,9 +17,10 @@
 //   * multipliers A[i, k] / A[k, k] (an IEEE division) are stored below
 //     the diagonal, the rank-1 update is A[i, j] - f_i * A[k, j] rounded
 //     as a separate multiply and subtract (__dmul_rn / __dsub_rn: no FMA
-//     contraction), one column step after another (no blocked or panel
-//     update, which would reorder the sums), so LU and perm match the
-//     plain PyTorch version bit for bit;
+//     contraction), and entry (i, j) takes its updates in ascending k,
+//     k = 0 .. min(i, j) - 1, so LU and perm match the plain PyTorch
+//     version bit for bit. (The panel tier below orders the work between
+//     entries differently, never the updates of one entry.)
 //   * perm[r] is the original row now at row r (int32); solves apply
 //     b[perm], a unit-lower forward pass, then an upper backward pass.
 //   The substitution passes here are column-oriented (each finished
@@ -36,7 +37,9 @@
 // per byte at n = 32, far below the card's FP64 ridge (~20), so every
 // small-n kernel is bound by memory traffic in principle, and by the n-1
 // dependent elimination steps (latency) and the instructions each step
-// issues in practice. Three tiers:
+// issues in practice. At larger n the trailing updates dominate
+// ((1/3) n^3 of them), and with them the bytes that cross HBM. Three
+// tiers:
 //
 //   * warp tier (lu_factor and factor_solve at the bucket widths n = 16
 //     and 32): one group of n threads per lane (a half-warp or a warp),
@@ -65,21 +68,43 @@
 //     32 multipliers at once and updates whole rows with its threads on
 //     the columns, three block barriers a step; factor_solve's
 //     substitution then runs in warp 0 alone (no block barriers).
-//   * block tier, in device memory (larger n): the same elimination on
-//     the lane's matrix in device memory -- in LU itself for lu_factor,
-//     in a workspace the wrapper allocates for factor_solve -- with only
-//     the permutation and the right-hand side in shared memory. It moves
-//     the trailing submatrix through L2 / HBM at every step: correct at
-//     any n, not fast (a panel design is later work, and would have to
-//     keep the column-step rounding order above).
+//   * panel tier (larger n: the lane's matrix stays in device memory, in
+//     LU itself for lu_factor and in a workspace the wrapper allocates
+//     for factor_solve): one block per lane factors b = 32 columns at a
+//     time, right-looking. An unblocked step would move the whole
+//     trailing submatrix through HBM (~89 MB a lane at n = 256, more
+//     than L2 holds across the resident lanes); a panel step moves it
+//     once per b columns. Each panel:
+//       1. its columns, rows k0.., are staged into shared memory and
+//          factored there with one block barrier a step: rows are never
+//          exchanged, each thread owns rows and tracks their positions
+//          (as the warp tier does), and the pivot is a (|a|, position)
+//          max-reduction, per warp by shuffles and then across warps;
+//       2. the panel goes back by position, and the panel's row order
+//          is applied to the columns left of it (through a shared stash
+//          of the moved rows);
+//       3. the columns right of it, in chunks of c: the moved rows are
+//          stashed, the U rows formed in the stash against the unit-lower
+//          panel (a warp per 8 columns, lane r on row r, ascending k),
+//          and each thread loads a 4 x 4 tile of the trailing rows once,
+//          applies the b updates in ascending k from the shared panel
+//          and U chunk, and writes it once.
+//     The first panel reads the input out of place (its trailing rows
+//     through the position map), so nothing copies A first. The
+//     contract forbids FMA, so the FP64 tensor cores (DMMA fuses the
+//     multiply-add) are out: the floor is two vector instructions per
+//     update. b (32 down to 1) and c (64, 32, 16) are the shape that
+//     keeps the most lanes on an SM (b = 16 at n = 512). factor_solve
+//     then substitutes in warp 0, as the block tier does, with y in
+//     shared memory and the factors in device memory.
 //   lu_solve is one block per lane at every n: the factors in device
 //   memory, the permuted right-hand side in shared memory.
 //   The right-hand sides [n, nrhs] stay in shared memory on every tier
-//   but the warp tier: lu_solve needs n*nrhs*8 bytes and a device-memory
+//   but the warp tier: lu_solve needs n*nrhs*8 bytes and a panel-tier
 //   factor_solve n*nrhs*8 + 4n within the opt-in limit (227 KB on an
-//   H100, e.g. nrhs <= 56 at n = 512); a larger launch is refused with a
-//   CUDA error, which the wrappers raise. The sweep's solves take
-//   nrhs = 1.
+//   H100, e.g. nrhs <= 56 at n = 512; the panel's working set is reused
+//   for them); a larger launch is refused with a CUDA error, which the
+//   wrappers raise. The sweep's solves take nrhs = 1.
 
 #include <cuda_runtime.h>
 
@@ -327,7 +352,7 @@ __device__ void copy_matrix(const double* src, int lds, double* dst, int ldd,
 }
 
 // In-place partial-pivoted LU of one lane's [n, n] matrix `a` (row
-// stride `ld`; shared or device memory). `perm` ([n] int, shared)
+// stride `ld`, in shared memory). `perm` ([n] int, shared)
 // receives the permutation. Expects `a` complete (a barrier after the
 // load); ends with a barrier.
 __device__ void factor_lane(double* a, int ld, int* perm, int n) {
@@ -405,7 +430,7 @@ __device__ void factor_lane(double* a, int ld, int* perm, int n) {
 }
 
 // Solve (LU) x = y in place for one lane: `lu` is the [n, n]
-// factorization at row stride `ld` (shared or device memory), `y` the
+// factorization at row stride `ld` (device memory), `y` the
 // permuted right-hand sides [n, nrhs] in shared memory.
 __device__ void solve_lane(const double* lu, int ld, double* y, int n,
                            int nrhs) {
@@ -469,24 +494,21 @@ __device__ void gather_rhs(const double* bl, const int* p, double* y, int n,
   __syncthreads();
 }
 
-// kResident: the matrix lives in shared memory; else it is factored in
-// place in LU. (A template argument, so the compiler knows which memory
-// each access goes to.)
-template <int kThreads, bool kResident>
+// The shared-memory block tier: the lane's matrix lives in shared memory
+// at an odd row stride, between one coalesced copy in and one out.
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads, min_blocks(kThreads))
 lu_factor_kernel(const double* __restrict__ A, double* LU,
                  int* __restrict__ perm, int n) {
   extern __shared__ double smem[];
   const long long lane = blockIdx.x;
   const long long nn = static_cast<long long>(n) * n;
-  double* dst = LU + lane * nn;
-  const int ld = kResident ? smem_ld(n) : n;
-  double* a = kResident ? smem : dst;
-  int* p = reinterpret_cast<int*>(kResident ? smem + n * ld : smem);
-  copy_matrix(A + lane * nn, n, a, ld, n);
+  const int ld = smem_ld(n);
+  int* p = reinterpret_cast<int*>(smem + n * ld);
+  copy_matrix(A + lane * nn, n, smem, ld, n);
   __syncthreads();
-  factor_lane(a, ld, p, n);
-  if (kResident) copy_matrix(a, ld, dst, n, n);
+  factor_lane(smem, ld, p, n);
+  copy_matrix(smem, ld, LU + lane * nn, n, n);
   for (int i = threadIdx.x; i < n; i += blockDim.x) perm[lane * n + i] = p[i];
 }
 
@@ -504,26 +526,23 @@ __global__ void lu_solve_kernel(const double* __restrict__ LU,
   for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) xl[e] = y[e];
 }
 
-// kResident: the matrix lives in shared memory; else it is factored in
-// the lane's n*n slice of `work` (device memory).
-template <int kThreads, bool kResident>
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads, min_blocks(kThreads))
 factor_solve_kernel(const double* __restrict__ A,
                     const double* __restrict__ b, double* __restrict__ x,
-                    double* work, int n, int nrhs) {
+                    int n, int nrhs) {
   extern __shared__ double smem[];
   const long long lane = blockIdx.x;
   const long long nn = static_cast<long long>(n) * n;
   const long long nk = static_cast<long long>(n) * nrhs;
-  const int ld = kResident ? smem_ld(n) : n;
-  double* a = kResident ? smem : work + lane * nn;
-  double* y = kResident ? smem + n * ld : smem;
+  const int ld = smem_ld(n);
+  double* y = smem + n * ld;
   int* p = reinterpret_cast<int*>(y + n * nrhs);
-  copy_matrix(A + lane * nn, n, a, ld, n);
+  copy_matrix(A + lane * nn, n, smem, ld, n);
   __syncthreads();
-  factor_lane(a, ld, p, n);
+  factor_lane(smem, ld, p, n);
   gather_rhs(b + lane * nk, p, y, n, nrhs);
-  solve_lane_warp(a, ld, y, n, nrhs);
+  solve_lane_warp(smem, ld, y, n, nrhs);
   if (threadIdx.x >= 32) return;
   double* xl = x + lane * nk;
   for (int e = threadIdx.x; e < n * nrhs; e += 32) xl[e] = y[e];
@@ -552,35 +571,428 @@ long long smem_optin() {
   return bytes;
 }
 
-// Shared memory of one block-tier factorization (nrhs = 0 for
-// lu_factor): the resident matrix, the right-hand sides, the
-// permutation.
-long long factor_smem(int n, int nrhs, bool resident) {
-  const long long mat = resident ? static_cast<long long>(n) * smem_ld(n) : 0;
-  return (mat + static_cast<long long>(n) * nrhs) * 8 + n * 4LL;
+// ---------------------------------------------------------------------
+// Panel tier: one block per lane, the matrix in device memory.
+
+constexpr int kPanelThreads = 256;
+constexpr int kPanelWarps = kPanelThreads / 32;
+constexpr int kPanelB = 32;  // panel width
+constexpr int kPanelC = 64;  // column chunk of the trailing update
+
+// Shared memory of the panel tier in bytes, the permutation left out:
+// the panel (n rows at the odd stride b | 1), the stash of up to 2b
+// moved rows by c columns (stride c + 1), each row's position and the
+// row at each position, the moved positions and their permutation
+// entries.
+inline long long panel_work_bytes(int n, int b, int c) {
+  return 8LL * (static_cast<long long>(n) * (b | 1) + 2LL * b * (c + 1)) +
+         4LL * (2LL * n + 4LL * b);
 }
 
-// Block-tier launches: 256 threads a lane up to n = 128, 512 above while
-// the matrix stays in shared memory, 1,024 on the device-memory tier.
-template <int T, bool R>
+// The panel tier's shape for one launch: b = 0 where even b = 1 does
+// not fit. The permutation sits past both the working set and the
+// right-hand sides, which reuse the working set's memory after the
+// factorization; `bytes` is the launch's dynamic shared memory.
+struct PanelPlan {
+  int b = 0, c = 0;
+  long long perm_off = 0, bytes = 0;
+};
+
+// Of the shapes that fit `limit`, the one that keeps the most blocks
+// (lanes) on an SM, and among those the widest panel, then the widest
+// chunk. (At n = 512 a panel of 16 lets two lanes share an SM where a
+// panel of 32 leaves one; each lane's stretches of pivot searches and
+// barriers then overlap the other's trailing updates.)
+template <typename K>
+PanelPlan panel_plan(K kernel, int n, int nrhs, long long limit) {
+  PanelPlan plan;
+  int most = 0;
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return plan;
+  const long long room = limit - static_cast<long long>(attr.sharedSizeBytes);
+  if (reserve_smem(kernel, static_cast<size_t>(room)) != cudaSuccess)
+    return plan;
+  for (int b = kPanelB; b >= 1; b >>= 1) {
+    for (int c = kPanelC; c >= 16; c >>= 1) {
+      const long long work = panel_work_bytes(n, b, c);
+      const long long off = work > 8LL * n * nrhs ? work : 8LL * n * nrhs;
+      const long long bytes = off + 4LL * n;
+      int blocks = 0;
+      if (bytes > room ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &blocks, kernel, kPanelThreads,
+              static_cast<size_t>(bytes)) != cudaSuccess ||
+          blocks <= most)
+        continue;
+      most = blocks;
+      plan.b = b;
+      plan.c = c;
+      plan.perm_off = off;
+      plan.bytes = bytes;
+    }
+  }
+  return plan;
+}
+
+// dst(e, j) = src(e, j) for e < rows, j < w: the threads over the
+// flattened block (consecutive threads on consecutive columns), four
+// loads in flight each.
+template <typename Src, typename Dst>
+__device__ __forceinline__ void copy_block(int rows, int w, Src src,
+                                           Dst dst) {
+  const int total = rows * w;
+  for (int base = threadIdx.x; base < total; base += 4 * kPanelThreads) {
+    double v[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = base + t * kPanelThreads;
+      if (i < total) v[t] = src(i / w, i % w);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = base + t * kPanelThreads;
+      if (i < total) dst(i / w, i % w) = v[t];
+    }
+  }
+}
+
+// Whether pivot candidate (key, at) beats (best, best_at): the larger
+// key, the smaller position on a tie. `at` packs a candidate's position
+// (high 16 bits) and row (low 16: the tier's shared memory keeps n
+// below 12,000).
+__device__ __forceinline__ bool pivot_beats(double key, int at, double best,
+                                            int best_at) {
+  return key > best || (key == best && at < best_at);
+}
+
+// U rows of one column chunk: the stash rows 0..bw-1 of its w columns
+// (the panel's row order already applied) against the unit-lower panel,
+// each entry's updates in ascending k. A warp per 8 columns, lane r on
+// row r; the result goes to the stash and to `a` (rows k0 .., columns
+// c0 ..).
+__device__ void panel_u_rows(const double* P, int ldp, const int* at,
+                             double* S, int lds, double* a, int n, int k0,
+                             int bw, int c0, int w) {
+  const int r = threadIdx.x & 31;
+  const bool live = r < bw;
+  const double* l = P + (live ? at[r] : 0) * ldp;
+  for (int g = (threadIdx.x >> 5) * 8; g < w; g += kPanelWarps * 8) {
+    double v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      v[t] = live && g + t < w ? S[r * lds + g + t] : 0.0;
+    for (int q = 0; q + 1 < bw; ++q) {
+      const double lq = l[q];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const double uq = __shfl_sync(kFullWarp, v[t], q);
+        if (r > q && live) v[t] = upd(v[t], lq, uq);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (live && g + t < w) {
+        S[r * lds + g + t] = v[t];
+        a[(k0 + r) * n + c0 + g + t] = v[t];
+      }
+    }
+  }
+}
+
+// Trailing rows bw..m-1 (of the panel's m) of one column chunk: each
+// warp takes 16 x 32 tiles, each thread a 4 x 4 tile (rows 4 apart,
+// columns 8 apart) loaded once, updated by the bw panel columns in
+// ascending k and written once. `from` holds the chunk before the update:
+// `a`, or the input in the first panel (`remap`), whose rows are read
+// through the position map `at`.
+__device__ void panel_trailing(const double* P, int ldp, const int* at,
+                               const double* S, int lds, const double* from,
+                               bool remap, double* a, int n, int k0, int bw,
+                               int m, int c0, int w) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+  const int cl = lane & 7;
+  const int col_tiles = (w + 31) / 32;
+  const int tiles = (m - bw + 15) / 16 * col_tiles;
+  for (int t = threadIdx.x >> 5; t < tiles; t += kPanelWarps) {
+    const int i0 = bw + t / col_tiles * 16 + rg;
+    const int j0 = t % col_tiles * 32 + cl;
+    const double* lrow[4];
+    const double* in[4];
+    double* out[4];
+    bool row_ok[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      row_ok[p] = i0 + 4 * p < m;
+      const int i = row_ok[p] ? i0 + 4 * p : bw;
+      lrow[p] = P + at[i] * ldp;
+      in[p] = from + (k0 + (remap ? at[i] : i)) * n + c0;
+      out[p] = a + (k0 + i) * n + c0;
+    }
+    int col[4];
+    bool col_ok[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      col_ok[q] = j0 + 8 * q < w;
+      col[q] = col_ok[q] ? j0 + 8 * q : w - 1;
+    }
+    double acc[4][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][q] = in[p][col[q]];
+#pragma unroll 4
+    for (int k = 0; k < bw; ++k) {
+      double l[4], u[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) l[p] = lrow[p][k];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u[q] = S[k * lds + col[q]];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = upd(acc[p][q], l[p], u[q]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (row_ok[p] && col_ok[q]) out[p][col[q]] = acc[p][q];
+  }
+}
+
+// Partial-pivoted LU of one lane's [n, n] matrix `in` into `a` (device
+// memory, row stride n; `in` is only read), b columns at a time (see
+// the header); `perm` ([n] int, shared) receives the permutation and
+// `smem` holds panel_work_bytes(n, b, c). Ends with a barrier.
+__device__ void factor_panels(const double* __restrict__ in, double* a,
+                              int n, int b, int c, double* smem, int* perm) {
+  __shared__ double red_key[2][kPanelWarps];
+  __shared__ int red_at[2][kPanelWarps];
+  __shared__ int s_moved;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ldp = b | 1;
+  const int lds = c + 1;
+  double* P = smem;
+  double* S = P + n * ldp;
+  int* pos = reinterpret_cast<int*>(S + 2 * b * lds);  // of each panel row
+  int* at = pos + n;                                   // row at a position
+  int* moved = at + n;  // positions 0..bw-1, then the others that moved
+  int* moved_perm = moved + 2 * b;
+  for (int i = tid; i < n; i += kPanelThreads) perm[i] = i;
+  for (int k0 = 0; k0 < max(n - 1, 1); k0 += b) {
+    const int m = n - k0;
+    const int bw = min(b, m);
+    const double* from = k0 == 0 ? in : a;
+
+    // 1. Stage the panel and factor it in shared memory. Thread t owns
+    // rows t, t + 256, ...; rows are never exchanged, pos[r] is row r's
+    // position in the pivoted order.
+    copy_block(
+        m, bw, [&](int r, int j) { return from[(k0 + r) * n + k0 + j]; },
+        [&](int r, int j) -> double& { return P[r * ldp + j]; });
+    for (int r = tid; r < m; r += kPanelThreads) pos[r] = r;
+    __syncthreads();
+    for (int k = 0; k < min(bw, m - 1); ++k) {
+      // Pivot: max |a| over positions k.., the first position on a tie.
+      // NaN is no candidate: non-candidates key -2, the row at position
+      // k -1 (an all-NaN column keeps it). Each thread reads only its
+      // own rows, which it updated itself, so one barrier a step orders
+      // the updates before the reads of the next pivot row.
+      double best = -3.0;
+      int best_at = m << 16;
+      for (int r = tid; r < m; r += kPanelThreads) {
+        const int p = pos[r];
+        if (p < k) continue;
+        const double v = fabs(P[r * ldp + k]);
+        const double key = v >= 0.0 ? v : (p == k ? -1.0 : -2.0);
+        if (pivot_beats(key, p << 16 | r, best, best_at)) {
+          best = key;
+          best_at = p << 16 | r;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const double o_key = __shfl_xor_sync(kFullWarp, best, off, 32);
+        const int o_at = __shfl_xor_sync(kFullWarp, best_at, off, 32);
+        if (pivot_beats(o_key, o_at, best, best_at)) {
+          best = o_key;
+          best_at = o_at;
+        }
+      }
+      const int s = k & 1;  // double-buffered: one barrier a step
+      if (lane == 0) {
+        red_key[s][warp] = best;
+        red_at[s][warp] = best_at;
+      }
+      __syncthreads();
+      best = red_key[s][0];
+      best_at = red_at[s][0];
+#pragma unroll
+      for (int w = 1; w < kPanelWarps; ++w) {
+        if (pivot_beats(red_key[s][w], red_at[s][w], best, best_at)) {
+          best = red_key[s][w];
+          best_at = red_at[s][w];
+        }
+      }
+      const int best_pos = best_at >> 16;
+      const int best_row = best_at & 0xffff;
+      const double* u = P + best_row * ldp;
+      const double pivot = u[k];
+      for (int r = tid; r < m; r += kPanelThreads) {
+        int p = pos[r];
+        if (p == k) p = best_pos;
+        if (r == best_row) p = k;
+        pos[r] = p;
+        if (p <= k) continue;
+        double* row = P + r * ldp;
+        const double f = row[k] / pivot;
+        row[k] = f;
+        for (int j0 = k + 1; j0 < bw; j0 += 8) {  // eight loads in flight
+          double v[8], uj[8];
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            if (j0 + t < bw) {
+              v[t] = row[j0 + t];
+              uj[t] = u[j0 + t];
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            if (j0 + t < bw) row[j0 + t] = upd(v[t], f, uj[t]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. The position map, the moved positions, the panel back to `a` by
+    // position, the permutation.
+    for (int r = tid; r < m; r += kPanelThreads) at[pos[r]] = r;
+    for (int e = tid; e < bw; e += kPanelThreads) moved[e] = e;
+    if (tid == 0) s_moved = bw;
+    __syncthreads();
+    for (int r = tid; r < m; r += kPanelThreads)
+      if (pos[r] >= bw && pos[r] != r) moved[atomicAdd(&s_moved, 1)] = pos[r];
+    copy_block(
+        m, bw, [&](int r, int j) { return P[r * ldp + j]; },
+        [&](int r, int j) -> double& { return a[(k0 + pos[r]) * n + k0 + j]; });
+    __syncthreads();
+    const int n_moved = s_moved;
+    for (int e = tid; e < n_moved; e += kPanelThreads)
+      moved_perm[e] = perm[k0 + at[moved[e]]];
+    __syncthreads();
+    for (int e = tid; e < n_moved; e += kPanelThreads)
+      perm[k0 + moved[e]] = moved_perm[e];
+
+    // 3. The panel's row order on the columns left of it: the moved rows
+    // through the stash.
+    auto stash = [&](int e, int j) -> double& { return S[e * lds + j]; };
+    for (int c0 = 0; c0 < k0; c0 += c) {
+      const int w = min(c, k0 - c0);
+      copy_block(
+          n_moved, w,
+          [&](int e, int j) { return a[(k0 + at[moved[e]]) * n + c0 + j]; },
+          stash);
+      __syncthreads();
+      copy_block(
+          n_moved, w, stash,
+          [&](int e, int j) -> double& { return a[(k0 + moved[e]) * n + c0 + j]; });
+      __syncthreads();
+    }
+
+    // 4. The columns right of it, chunk by chunk: the U rows (and, in
+    // place, the other moved rows) through the stash, then the trailing
+    // update.
+    for (int c0 = k0 + bw; c0 < n; c0 += c) {
+      const int w = min(c, n - c0);
+      copy_block(
+          k0 == 0 ? bw : n_moved, w,
+          [&](int e, int j) { return from[(k0 + at[moved[e]]) * n + c0 + j]; },
+          stash);
+      __syncthreads();
+      if (k0 > 0) {
+        copy_block(
+            n_moved - bw, w,
+            [&](int e, int j) { return S[(bw + e) * lds + j]; },
+            [&](int e, int j) -> double& {
+              return a[(k0 + moved[bw + e]) * n + c0 + j];
+            });
+      }
+      panel_u_rows(P, ldp, at, S, lds, a, n, k0, bw, c0, w);
+      __syncthreads();
+      panel_trailing(P, ldp, at, S, lds, from, k0 == 0, a, n, k0, bw, m, c0,
+                     w);
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kPanelThreads, 2)
+lu_factor_panel_kernel(const double* __restrict__ A, double* __restrict__ LU,
+                       int* __restrict__ perm, int n, int b, int c,
+                       long long perm_off) {
+  extern __shared__ double smem[];
+  const long long lane = blockIdx.x;
+  const long long nn = static_cast<long long>(n) * n;
+  int* p = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + perm_off);
+  factor_panels(A + lane * nn, LU + lane * nn, n, b, c, smem, p);
+  for (int i = threadIdx.x; i < n; i += kPanelThreads)
+    perm[lane * n + i] = p[i];
+}
+
+// Factors in the lane's n*n slice of `work`, then solves with the
+// right-hand sides in the panel's shared memory (warp 0, as
+// factor_solve_kernel), reading the factors in device memory.
+__global__ void __launch_bounds__(kPanelThreads, 2)
+factor_solve_panel_kernel(const double* __restrict__ A,
+                          const double* __restrict__ b,
+                          double* __restrict__ x, double* __restrict__ work,
+                          int n, int nrhs, int pb, int c,
+                          long long perm_off) {
+  extern __shared__ double smem[];
+  const long long lane = blockIdx.x;
+  const long long nn = static_cast<long long>(n) * n;
+  const long long nk = static_cast<long long>(n) * nrhs;
+  int* p = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + perm_off);
+  double* a = work + lane * nn;
+  factor_panels(A + lane * nn, a, n, pb, c, smem, p);
+  gather_rhs(b + lane * nk, p, smem, n, nrhs);
+  solve_lane_warp(a, n, smem, n, nrhs);
+  if (threadIdx.x >= 32) return;
+  double* xl = x + lane * nk;
+  for (int e = threadIdx.x; e < n * nrhs; e += 32) xl[e] = smem[e];
+}
+
+// Shared memory of one shared-memory block-tier factorization (nrhs = 0
+// for lu_factor): the matrix, the right-hand sides, the permutation.
+long long factor_smem(int n, int nrhs) {
+  return (static_cast<long long>(n) * smem_ld(n) +
+          static_cast<long long>(n) * nrhs) * 8 + n * 4LL;
+}
+
+// Shared-memory block tier launches: 256 threads a lane up to n = 128,
+// 512 above.
+template <int T>
 cudaError_t launch_lu_factor(const double* A, double* LU, int* perm,
                              long long lanes, int n, size_t bytes,
                              cudaStream_t stream) {
-  cudaError_t err = reserve_smem(lu_factor_kernel<T, R>, bytes);
+  cudaError_t err = reserve_smem(lu_factor_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  lu_factor_kernel<T, R><<<static_cast<unsigned int>(lanes), T, bytes,
-                           stream>>>(A, LU, perm, n);
+  lu_factor_kernel<T><<<static_cast<unsigned int>(lanes), T, bytes,
+                        stream>>>(A, LU, perm, n);
   return cudaGetLastError();
 }
 
-template <int T, bool R>
+template <int T>
 cudaError_t launch_factor_solve(const double* A, const double* b, double* x,
-                                double* work, long long lanes, int n,
-                                int nrhs, size_t bytes, cudaStream_t stream) {
-  cudaError_t err = reserve_smem(factor_solve_kernel<T, R>, bytes);
+                                long long lanes, int n, int nrhs,
+                                size_t bytes, cudaStream_t stream) {
+  cudaError_t err = reserve_smem(factor_solve_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  factor_solve_kernel<T, R><<<static_cast<unsigned int>(lanes), T, bytes,
-                              stream>>>(A, b, x, work, n, nrhs);
+  factor_solve_kernel<T><<<static_cast<unsigned int>(lanes), T, bytes,
+                           stream>>>(A, b, x, n, nrhs);
   return cudaGetLastError();
 }
 
@@ -615,7 +1027,7 @@ extern "C" {
 // the lane's matrix does not fit shared memory, else 0.
 long long pk_factor_solve_workspace(int n, int nrhs) {
   if (n == 16 || n == 32) return 0;
-  return factor_smem(n, nrhs, true) > smem_optin()
+  return factor_smem(n, nrhs) > smem_optin()
              ? static_cast<long long>(n) * n
              : 0;
 }
@@ -630,13 +1042,18 @@ int pk_lu_factor(const double* A, double* LU, int* perm, long long lanes,
     return launch_warp<32, false>(A, LU, perm, nullptr, nullptr, lanes, 0, s);
   const long long limit = smem_optin();
   if (limit <= 0) return cudaErrorInvalidDevice;
-  const bool resident = factor_smem(n, 0, true) <= limit;
-  const size_t bytes = static_cast<size_t>(factor_smem(n, 0, resident));
-  if (!resident)
-    return launch_lu_factor<1024, false>(A, LU, perm, lanes, n, bytes, s);
-  if (n <= 128)
-    return launch_lu_factor<256, true>(A, LU, perm, lanes, n, bytes, s);
-  return launch_lu_factor<512, true>(A, LU, perm, lanes, n, bytes, s);
+  const size_t bytes = static_cast<size_t>(factor_smem(n, 0));
+  if (static_cast<long long>(bytes) <= limit) {
+    if (n <= 128)
+      return launch_lu_factor<256>(A, LU, perm, lanes, n, bytes, s);
+    return launch_lu_factor<512>(A, LU, perm, lanes, n, bytes, s);
+  }
+  const PanelPlan plan = panel_plan(lu_factor_panel_kernel, n, 0, limit);
+  if (plan.b == 0) return cudaErrorInvalidValue;
+  lu_factor_panel_kernel<<<static_cast<unsigned int>(lanes), kPanelThreads,
+                           plan.bytes, s>>>(A, LU, perm, n, plan.b, plan.c,
+                                            plan.perm_off);
+  return cudaGetLastError();
 }
 
 int pk_lu_solve(const double* LU, const int* perm, const double* b,
@@ -664,17 +1081,20 @@ int pk_factor_solve(const double* A, const double* b, double* x,
     return launch_warp<32, true>(A, nullptr, nullptr, b, x, lanes, nrhs, s);
   const long long limit = smem_optin();
   if (limit <= 0) return cudaErrorInvalidDevice;
-  const bool resident = factor_smem(n, nrhs, true) <= limit;
-  if (!resident && work == nullptr) return cudaErrorInvalidValue;
-  const size_t bytes = static_cast<size_t>(factor_smem(n, nrhs, resident));
-  if (!resident)
-    return launch_factor_solve<1024, false>(A, b, x, work, lanes, n, nrhs,
-                                            bytes, s);
-  if (n <= 128)
-    return launch_factor_solve<256, true>(A, b, x, nullptr, lanes, n, nrhs,
-                                          bytes, s);
-  return launch_factor_solve<512, true>(A, b, x, nullptr, lanes, n, nrhs,
-                                        bytes, s);
+  const size_t bytes = static_cast<size_t>(factor_smem(n, nrhs));
+  if (static_cast<long long>(bytes) <= limit) {
+    if (n <= 128)
+      return launch_factor_solve<256>(A, b, x, lanes, n, nrhs, bytes, s);
+    return launch_factor_solve<512>(A, b, x, lanes, n, nrhs, bytes, s);
+  }
+  if (work == nullptr) return cudaErrorInvalidValue;
+  const PanelPlan plan =
+      panel_plan(factor_solve_panel_kernel, n, nrhs, limit);
+  if (plan.b == 0) return cudaErrorInvalidValue;
+  factor_solve_panel_kernel<<<static_cast<unsigned int>(lanes),
+                              kPanelThreads, plan.bytes, s>>>(
+      A, b, x, work, n, nrhs, plan.b, plan.c, plan.perm_off);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

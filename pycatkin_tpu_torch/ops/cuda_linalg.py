@@ -26,12 +26,14 @@ The kernels serve every n. ``lu_factor`` and ``factor_solve`` pick a
 tier by n (``csrc/linalg.cu``): a warp (n = 32) or half-warp (n = 16)
 per lane with rows in registers; at every other n one block per lane
 with the matrix in shared memory while it fits the card's opt-in limit
-(n <= 169 at k = 1 on an H100), and beyond that one block per lane on
-the matrix in device memory (in ``LU`` itself, or in a workspace this
-module allocates for ``factor_solve``). Off the warp tier the k
-right-hand sides stay in shared memory: ``n * k * 8`` bytes (plus
-``4 n`` for ``factor_solve``) must fit that limit (k <= 56 at n = 512
-on an H100); a larger k is refused by the launch, which raises.
+(n <= 169 at k = 1 on an H100), and beyond that the panel tier: one
+block per lane factors the matrix in device memory (in ``LU`` itself,
+or in a workspace this module allocates for ``factor_solve``) a panel
+of columns at a time, with each entry's updates in the plain version's
+order. Off the warp tier the k right-hand sides stay in shared memory:
+``n * k * 8`` bytes (plus ``4 n`` for ``factor_solve``) must fit that
+limit (k <= 56 at n = 512 on an H100); a larger k is refused, and the
+wrapper raises.
 
 The kernels are compiled from the package's own source on first use
 (``nvcc`` for ``sm_90a`` into ``build/pycatkin_tpu_torch/`` beside the

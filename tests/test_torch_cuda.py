@@ -59,10 +59,12 @@ def _hold_to_contract(A, b, LU, perm, x, xf, good):
     assert float((xf[good] - xr[good]).abs().max()) <= 1e-12 * scale
 
 
-@pytest.mark.parametrize("n", [165, 256, 512])
+@pytest.mark.parametrize("n", [165, 170, 200, 256, 512])
 def test_kernels_serve_large_n_on_the_card(device, n):
-    """Above n = 128: n = 165 stays in shared memory, 256 and 512 take
-    the device-memory tier (factor_solve through its workspace)."""
+    """Above n = 128: n = 165 stays in shared memory; from n = 170 the
+    panel tier factors the matrix in device memory (factor_solve through
+    its workspace), 200 with a last panel of 8 columns; perm and LU bit
+    for bit the plain version's."""
     A, b = _systems(5, n, None, device)
     cl.reset_launches()
     LU, perm = cl.lu_factor(A)

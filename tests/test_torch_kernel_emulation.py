@@ -11,11 +11,12 @@ go through per-warp slot arrays; a thread that returns drops out of its
 barriers, and a block in which every thread waits aborts. Launches run
 the blocks one after another. That exercises the kernels' indexing,
 pivot search and barrier placement without a card -- blocks of several
-warps, half-warp lanes, a partial last block, the shared-memory and
-device-memory tiers -- and the results are held against the plain
-PyTorch versions with the same contract as on the card (perm equal, LU
-bit for bit, x within 1e-12 relative, a singular lane non-finite and its
-neighbours untouched). Skips when no host C++ compiler is installed."""
+warps, half-warp lanes, a partial last block, the shared-memory block
+tier and the panel tier (at small n, under a lowered opt-in limit) --
+and the results are held against the plain PyTorch versions with the
+same contract as on the card (perm equal, LU bit for bit, x within 1e-12
+relative, a singular lane non-finite and its neighbours untouched).
+Skips when no host C++ compiler is installed."""
 
 import ctypes
 import re
@@ -48,6 +49,7 @@ EMULATION_HEADER = r"""
 #define __shared__ static
 #define __restrict__
 #define __launch_bounds__(...)
+using std::max;
 using std::min;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -134,6 +136,10 @@ struct Warp {
 inline Barrier* g_block = nullptr;
 inline std::vector<std::unique_ptr<Warp>> g_warps;
 inline double g_smem[232448 / 8];
+// The opt-in limit the kernels read (the H100's unless a test lowers it,
+// so that the tiers switch at smaller n).
+inline int g_optin = static_cast<int>(sizeof(g_smem));
+extern "C" void emu_set_optin(int bytes) { g_optin = bytes; }
 inline Warp& my_warp() { return *g_warps[threadIdx.x / 32]; }
 inline Barrier& group_barrier(unsigned mask) {
   Warp& w = my_warp();
@@ -149,6 +155,12 @@ inline void __syncwarp(unsigned mask = 0xffffffffu) {
   group_barrier(mask).arrive_and_wait();
 }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+// Fibers take turns, so a read-modify-write is atomic as it stands.
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
 // Lane l of the warp reads the value lane src(l) put in the slot.
 template <class T, class F> T exchange(unsigned mask, T* slot, T v, F src) {
   const int l = threadIdx.x % 32;
@@ -218,13 +230,24 @@ inline unsigned __ballot_sync(unsigned mask, bool pred) {
 }
 template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute,
                                                     int bytes) {
-  return bytes <= static_cast<int>(sizeof(g_smem)) ? 0
-                                                   : cudaErrorInvalidValue;
+  return bytes <= g_optin ? 0 : cudaErrorInvalidValue;
+}
+struct cudaFuncAttributes { size_t sharedSizeBytes; };
+template <class K> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a,
+                                                     K) {
+  a->sharedSizeBytes = 0;
+  return 0;
+}
+// One block an SM at every size: the panel tier then takes its widest
+// shape that fits.
+template <class K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, K, int, size_t) {
+  *blocks = 1;
+  return 0;
 }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-// The H100's opt-in limit, so the tiers switch where they do on the card.
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 232448;
+  *v = g_optin;
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -430,8 +453,8 @@ def test_block_tier_pivots_on_updated_columns(emulated, n):
     so every pivot search reads columns the previous step updated: at
     n = 64 in shared memory, and at n = 170, where one lane's matrix
     (231 KB with the permutation) no longer fits the H100's 227 KB of
-    shared memory, so lu_factor works in LU and factor_solve in its
-    workspace. Lane 1 is singular."""
+    shared memory, so the panel tier takes it: lu_factor works in LU and
+    factor_solve in its workspace. Lane 1 is singular."""
     L = 2
     lib = emulated
     assert lib.pk_factor_solve_workspace(169, 1) == 0
@@ -441,6 +464,74 @@ def test_block_tier_pivots_on_updated_columns(emulated, n):
     A[1, :, n // 2] = 0.0
     At, bt = torch.tensor(A), torch.tensor(rng.standard_normal((L, n)))
     _hold_to_contract(At, bt, _run_kernels(lib, At, bt), [0], bad=(1,))
+
+
+H100_OPTIN = 232448
+
+
+@pytest.fixture
+def optin(emulated):
+    """Sets the emulated opt-in limit for one test (the tiers switch by
+    it), and puts the H100's back afterwards."""
+    yield emulated.emu_set_optin
+    emulated.emu_set_optin(H100_OPTIN)
+
+
+# (n, k, opt-in limit in bytes, what the panel tier then runs). The limit
+# is one at which the lane no longer fits shared memory, so the panel tier
+# takes sizes the emulation runs in seconds.
+PANEL_CASES = [
+    (64, None, 30000, "b = 32, chunks of 16; n a multiple of b"),
+    (70, None, 30000, "b = 32, chunks of 16; a last panel of 6"),
+    (70, 3, 30000, "b = 32, chunks of 16; three right-hand sides"),
+    (96, None, 70000, "b = 32, chunks of 64; n a multiple of b"),
+    (100, 2, 70000, "b = 32, chunks of 64; a last panel of 4"),
+    (70, None, 20000, "b = 16, chunks of 32; a last panel of 6"),
+    (40, None, 3000, "b = 2, chunks of 32"),
+    (40, 8, 3000, "b = 2; eight right-hand sides, which take more shared "
+     "memory than the panel's working set"),
+]
+
+
+@pytest.mark.parametrize("n,k,limit,what", PANEL_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in PANEL_CASES])
+def test_panel_tier_matches_plain_versions(emulated, optin, n, k, limit,
+                                           what):
+    """The panel tier (the lane's matrix in device memory, factored a
+    panel at a time) at an opt-in limit that sends n there. Eight lanes,
+    one block each: 0 diagonally dominant, 1 and 7 the same with shuffled
+    rows (pivots leave the panel's top rows), 2 tied column maxima (small
+    integers), 3 a first column whose two largest entries differ only in
+    their low 32 bits, the larger further down, 4 Gaussian (every pivot
+    search reads updated columns, across panels), 5 singular, 6 all NaN.
+    Every other lane matches the plain version exactly as the contract
+    says (perm and LU bit for bit), in lu_factor and factor_solve; the
+    lanes past the launch stay untouched."""
+    optin(limit)
+    lib = emulated
+    nrhs = 1 if k is None else k
+    assert lib.pk_factor_solve_workspace(n, nrhs) == n * n, what
+    rng = np.random.default_rng(1000 + n)
+    L = 8
+    A = rng.standard_normal((L, n, n)) + 2.0 * n * np.eye(n)
+    for i in (1, 7):
+        A[i] = A[i][rng.permutation(n)]
+    A[2] = _tie_matrix(rng, n)
+    A[3, :, 0] *= 0.01
+    A[3, 0, 0], A[3, n - 2, 0] = 2.0 * n, 2.0 * n * (1.0 + 2.0 ** -40)
+    A[4] = rng.standard_normal((n, n))
+    A[5, :, n // 2] = 0.0
+    A[6] = np.nan
+    At = torch.tensor(A)
+    bt = torch.tensor(rng.standard_normal((L, n) if k is None
+                                          else (L, n, k)))
+    out = _run_kernels(lib, At, bt)
+    good = [i for i in range(L) if i not in (5, 6)]
+    _hold_to_contract(At, bt, out, good, bad=(5, 6))
+    assert not bool(torch.isfinite(out[0][5]).all())
+    assert not bool(torch.isfinite(out[0][6]).all())
+    # The low-word tie: the larger entry, further down, is the pivot.
+    assert int(out[1][3, 0]) == n - 2
 
 
 def test_kernel_entry_points_reject_bad_sizes(emulated):
