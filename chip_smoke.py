@@ -7,13 +7,18 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
 1. device: the card's name and power limit (nvidia-smi) and the build time;
 2. kernel check: every kernel (``lu_factor``, ``lu_solve``,
    ``factor_solve``) against its plain PyTorch version on the card, at
-   n = 16, 32 (the warp tier), 9, 21, 64, 128 (the shared-memory block
-   tier), 165 (the largest shapes in shared memory) and 170, 200, 256,
-   512 (the panel tier, the matrix in device memory: 170 is its first n
+   n = 16, 32 (the warp tier), 9, 21, 64 (the resident tier, the matrix
+   in shared memory, three or more lanes an SM), 112 (the resident tier
+   with two lanes an SM, on 256 threads), 128, 165 (the panel tier, the
+   matrix in device memory, where one lane alone fits an SM's shared
+   memory), 170, 200,
+   256, 512 (the panel tier; 170 is the first n whose lane does not fit
    at k = 1, 200 leaves a last panel of 8 columns), with
    well-conditioned lanes plus one singular lane: perm and LU equal to
-   the plain version's (``torch.equal``), x within 1e-12 relative, the
-   singular lane non-finite. At n = 16 and 32 the check takes 65,537
+   the plain version's (``torch.equal``), x within 1e-12 relative,
+   ``lu_solve(*lu_factor(A), b)`` equal to ``factor_solve(A, b)``
+   (``torch.equal``: both take each entry's updates in the same order),
+   the singular lane non-finite. At n = 16 and 32 the check takes 65,537
    lanes, which leaves the warp tier a partial last block. Then the
    plain-PyTorch Gauss-Jordan route (n = 8, 21) on the card against the
    CPU;
@@ -45,7 +50,7 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
 7. large path: synthetic (200, 200) seed 0, 2,048 lanes, T 400-800 K,
    run two ways, each of which must launch ``lu_factor`` and
    ``lu_solve``: ``fused_sweep`` (n_dyn = 165 > 128, the LU route, the
-   matrix in shared memory) and ``sweep_steady_state(abi=True,
+   panel tier) and ``sweep_steady_state(abi=True,
    check_stability=False)`` (S = 512, D = 256, the LU route on the
    panel tier). The tier-2 host eigensolve at n = 256 is left
    out: it is host time this phase does not measure. 16 lanes of each
@@ -60,8 +65,10 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    inverse timed at the flagship's shape;
 9. each kernel timed at the shapes each path gives it, beside its plain
    version, the matching ``torch.linalg`` call, its bound and the FP64
-   vector floor (see :func:`vector_floor_ms`); then, on no path, the
-   three kernels at n = 512 and ``factor_solve`` at n = 165, 256.
+   vector floor (see :func:`vector_floor_ms`), and the wrapper's host
+   time per launch (checks, output allocation, the C entry's choice of
+   tier and plan, the launch); then, on no path, the three kernels at
+   n = 512 and ``factor_solve`` at n = 165, 256.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
@@ -91,7 +98,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # FP64 units x 1.98 GHz boost clock (the data sheet's 34 TFLOP/s counts
 # an FMA as two operations).
 FP64_VECTOR_INSTR_PER_S = 132 * 64 * 1.98e9
-SIZES = (9, 16, 21, 32, 64, 128, 165, 170, 200, 256, 512)
+SIZES = (9, 16, 21, 32, 64, 112, 128, 165, 170, 200, 256, 512)
 KERNEL_TOL = 1e-12
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
@@ -143,6 +150,21 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host time of one ``fn()`` in microseconds over ``reps``
+    back-to-back calls, none of which waits for the card (the launches
+    queue behind each other), after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def lu_flops(n: int) -> float:
@@ -209,6 +231,7 @@ def check_lanes(n: int) -> int:
 def check_kernels(cl, device) -> None:
     """Phase 2a: each kernel against its plain version at every size."""
     import torch
+    unequal = []
     for n in SIZES:
         lanes = check_lanes(n)
         A, b = test_matrices(lanes, n, seed=n, device=device)
@@ -222,7 +245,7 @@ def check_kernels(cl, device) -> None:
         assert torch.equal(LU[good], LUr[good]), \
             f"lu_factor n={n}: LU differs from the plain version's (rel " \
             f"err {e_lu})"
-        errs = {}
+        errs, eq = {}, {}
         for name, rhs in (("vec", b), ("mat", B)):
             x = cl.lu_solve(LU, perm, rhs)
             torch.cuda.synchronize()
@@ -238,11 +261,18 @@ def check_kernels(cl, device) -> None:
                     f"n={n} {name}: singular lane came out finite"
                 assert bool(torch.isfinite(out[good]).all()), \
                     f"n={n} {name}: a well-conditioned lane is non-finite"
+            # Both solves take each entry's updates in the same order.
+            eq[name] = torch.equal(x[good], xf[good])
+            if not eq[name]:
+                unequal.append(f"n={n} {name}")
             errs[name] = max(e1, e2)
         assert not bool(torch.isfinite(LU[-1]).all())
         log(f"kernel check n={n}: {lanes}+1 lanes, perm and LU equal, x rel "
-            f"err vec {errs['vec']:.2e} mat {errs['mat']:.2e}, singular "
-            f"lane non-finite")
+            f"err vec {errs['vec']:.2e} mat {errs['mat']:.2e}, lu_solve and "
+            f"factor_solve bit for bit vec {eq['vec']} mat {eq['mat']}, "
+            f"singular lane non-finite")
+    assert not unequal, \
+        f"lu_solve(*lu_factor(A), b) differs from factor_solve(A, b): {unequal}"
 
 
 def time_lu(cl, n: int, L: int, device) -> list:
@@ -256,12 +286,13 @@ def time_lu(cl, n: int, L: int, device) -> list:
     lu_err = float(torch.max(torch.abs(LU[:-1] - LUr[:-1])))
     assert torch.equal(perm[:-1], permr[:-1])
     ms = cuda_ms(lambda: cl.lu_factor(A), REPS)
+    hus = host_us(lambda: cl.lu_factor(A), REPS)
     plain = cuda_ms(lambda: cl.lu_factor_ref(A), 2)
     lib = cuda_ms(lambda: torch.linalg.lu_factor_ex(A), REPS)
     bms, by = bound(L * (2 * n * n * 8 + n * 4), L * lu_flops(n))
     rows = [dict(name="lu_factor", n=n, lanes=L, max_abs_err=lu_err, ms=ms,
                  plain_ms=plain, bound_ms=bms, bound_by=by,
-                 library_ms=lib,
+                 library_ms=lib, host_us=hus,
                  vector_floor_ms=vector_floor_ms(L * lu_updates(n)))]
 
     x = cl.lu_solve(LU, perm, b)
@@ -269,6 +300,7 @@ def time_lu(cl, n: int, L: int, device) -> list:
     sol_err = float(torch.max(torch.abs(x[:-1] - xr[:-1])))
     tLU, tpiv, _ = torch.linalg.lu_factor_ex(A)
     ms = cuda_ms(lambda: cl.lu_solve(LU, perm, b), REPS)
+    hus = host_us(lambda: cl.lu_solve(LU, perm, b), REPS)
     plain = cuda_ms(lambda: cl.lu_solve_ref(LU, perm, b), 2)
     lib = cuda_ms(lambda: torch.linalg.lu_solve(tLU, tpiv, b[:, :, None]),
                   REPS)
@@ -276,7 +308,7 @@ def time_lu(cl, n: int, L: int, device) -> list:
                     L * solve_flops(n))
     rows.append(dict(name="lu_solve", n=n, lanes=L, max_abs_err=sol_err,
                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                     library_ms=lib,
+                     library_ms=lib, host_us=hus,
                      vector_floor_ms=vector_floor_ms(L * (n * n - n))))
     return rows
 
@@ -290,13 +322,14 @@ def time_factor_solve(cl, n: int, L: int, device) -> dict:
     xfr = cl.factor_solve_ref(A, b)
     fs_err = float(torch.max(torch.abs(xf[:-1] - xfr[:-1])))
     ms = cuda_ms(lambda: cl.factor_solve(A, b), REPS)
+    hus = host_us(lambda: cl.factor_solve(A, b), REPS)
     plain = cuda_ms(lambda: cl.factor_solve_ref(A, b), 2)
     lib = cuda_ms(lambda: torch.linalg.solve_ex(A, b), REPS)
     bms, by = bound(L * (n * n * 8 + 2 * n * 8),
                     L * (lu_flops(n) + solve_flops(n)))
     return dict(name="factor_solve", n=n, lanes=L, max_abs_err=fs_err,
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                library_ms=lib, vector_floor_ms=vector_floor_ms(
+                library_ms=lib, host_us=hus, vector_floor_ms=vector_floor_ms(
                     L * (lu_updates(n) + n * n - n)))
 
 
@@ -752,7 +785,8 @@ def main() -> int:
             f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms torch.linalg "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it) FP64 "
-            f"vector floor {r['vector_floor_ms']:.4f} ms")
+            f"vector floor {r['vector_floor_ms']:.4f} ms | host "
+            f"{r['host_us']:.1f} us a launch")
     # Shapes on no path: the bucket-512 kernels, factor_solve above 128.
     off_path = time_lu(cl, 512, 256, device) + [
         time_factor_solve(cl, n, L_, device)
@@ -762,8 +796,8 @@ def main() -> int:
             f"lanes | kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"torch.linalg {r['library_ms']:.4f} ms bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) FP64 vector floor "
-            f"{r['vector_floor_ms']:.4f} ms | max abs err "
-            f"{r['max_abs_err']:.3e}")
+            f"{r['vector_floor_ms']:.4f} ms | host {r['host_us']:.1f} us a "
+            f"launch | max abs err {r['max_abs_err']:.3e}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

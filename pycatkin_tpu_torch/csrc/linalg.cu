@@ -19,15 +19,16 @@
 //     as a separate multiply and subtract (__dmul_rn / __dsub_rn: no FMA
 //     contraction), and entry (i, j) takes its updates in ascending k,
 //     k = 0 .. min(i, j) - 1, so LU and perm match the plain PyTorch
-//     version bit for bit. (The panel tier below orders the work between
-//     entries differently, never the updates of one entry.)
+//     version bit for bit. (The blocked tiers below order the work
+//     between entries differently, never the updates of one entry.)
 //   * perm[r] is the original row now at row r (int32); solves apply
 //     b[perm], a unit-lower forward pass, then an upper backward pass.
-//   The substitution passes here are column-oriented (each finished
-//   unknown is subtracted from the rows still open, in ascending order
-//   forward and descending order backward), so x agrees with the
+//   The substitution passes are column-oriented: each entry of y takes
+//   its updates in ascending order forward and descending order backward
+//   and is divided after its last backward update. So x agrees with the
 //   row-dot recurrences of the plain version to rounding order only, and
-//   every tier below computes the same x bit for bit.
+//   lu_solve(lu_factor(A), b) is factor_solve(A, b) bit for bit on every
+//   tier.
 //   A singular or NaN lane divides by a zero / NaN pivot and comes out
 //   non-finite; lanes never touch each other's data. NaN never wins a
 //   pivot search; an all-NaN column keeps row k.
@@ -38,73 +39,92 @@
 // small-n kernel is bound by memory traffic in principle, and by the n-1
 // dependent elimination steps (latency) and the instructions each step
 // issues in practice. At larger n the trailing updates dominate
-// ((1/3) n^3 of them), and with them the bytes that cross HBM. Three
-// tiers:
+// ((1/3) n^3 of them): the contract forbids FMA, so the FP64 tensor cores
+// (DMMA fuses the multiply-add) are out and the floor is two vector
+// instructions per update, each fed from registers, not shared memory.
+// The tiers:
 //
-//   * warp tier (lu_factor and factor_solve at the bucket widths n = 16
-//     and 32): one group of n threads per lane (a half-warp or a warp),
-//     eight or four lanes per 128-thread block. Thread r keeps row r in
-//     registers (n is a template argument and the loops over columns and
-//     steps are unrolled, so the row never leaves registers and no index
-//     needs a run-time bound check). Rows are never
-//     exchanged: each thread tracks its row's position in the pivoted
-//     order instead. The pivot search is an integer max-reduction
+//   * warp tier (n = 16 and 32, the bucket widths; all three kernels):
+//     one group of n threads per lane (a half-warp or a warp), eight or
+//     four lanes per 128-thread block. Thread r keeps row r in registers
+//     (n is a template argument and the loops are unrolled, so the row
+//     never leaves registers). The lane's contiguous n*n block is staged
+//     coalesced through an odd-stride shared tile, in and out. Rows are
+//     never exchanged: each thread tracks its row's position in the
+//     pivoted order. The pivot search is an integer max-reduction
 //     (__reduce_max_sync) of the high words plus a ballot for the row
 //     attaining it (low words and positions decide ties); the pivot row
 //     travels through a per-group shared row read back with same-address
-//     (broadcast) 16-byte loads, since a shuffle moves a double as two
-//     32-bit halves. Every collective is taken by the whole warp: with a
-//     half-warp mask the card runs it once per half, one after the other.
-//     No block barrier: a warp past the last lane returns. The lane's
-//     contiguous n*n block is staged coalesced through an odd-stride
-//     shared tile, in and out. factor_solve then substitutes in
-//     registers too: each thread holds y at its row's position, and each
-//     finished unknown is broadcast by a shuffle.
-//   * block tier, resident (every other n while a lane fits the card's
-//     opt-in shared memory, n <= 169 at k = 1 on an H100): one block per
-//     lane, the
-//     matrix in shared memory at an odd row stride (so a column walk hits
-//     distinct banks), warp 0 searches the pivot, each warp divides up to
-//     32 multipliers at once and updates whole rows with its threads on
-//     the columns, three block barriers a step; factor_solve's
-//     substitution then runs in warp 0 alone (no block barriers).
+//     16-byte loads. Every collective is taken by the whole warp: with a
+//     half-warp mask the card runs it once per half. No block barrier: a
+//     warp past the last lane returns. The substitution (factor_solve
+//     after factoring, lu_solve on given factors) runs in registers too:
+//     each thread holds y at its row's position, and each finished
+//     unknown is broadcast by a shuffle (warp_forward / warp_backward).
+//   * resident tier (lu_factor and factor_solve at every other n while
+//     two lanes fit an SM's shared memory, n <= 119 at k = 1 on an H100):
+//     one block per lane, the matrix in shared memory at an odd row
+//     stride, factored 32 columns at a time, right-looking, rows never
+//     exchanged. Each panel: its steps, one block barrier each (the pivot
+//     a (|a|, position) max-reduction, per warp by shuffles and then
+//     across warps through a double-buffered slot; each thread divides
+//     and updates the panel columns of its own rows); then the U rows
+//     right of it (a warp per 8 columns, lane r on row r, ascending k)
+//     and the trailing rows in 4 x 4 register tiles, each loaded once,
+//     given the panel's 32 updates in ascending k and stored once. LU
+//     goes out by position and perm is the row at each position.
+//     factor_solve then substitutes in warp 0 (no block barriers) with y
+//     in shared memory. The boundary is measured
+//     (pycatkin_tpu_torch/tools/tier_boundary.py builds a copy forcing
+//     each tier; H100 80GB HBM3 at 700 W, ms resident / panel:
+//     n = 64 x 4,096 0.6534 / 1.2881, n = 112 x 4,096 2.7389 / 3.1103,
+//     n = 128 x 4,096 5.5583 / 3.5927, n = 165 x 2,048 4.4703 / 3.3190):
+//     with one lane an SM the steps' latency (a barrier, a reduction
+//     and a division chain each) is exposed and the panel tier, which
+//     keeps two lanes an SM there, is faster; with two or more the
+//     resident tier is. It takes 128 threads where three or
+//     more lanes fit (their registers then admit all of them), 256 where
+//     two do.
 //   * panel tier (larger n: the lane's matrix stays in device memory, in
 //     LU itself for lu_factor and in a workspace the wrapper allocates
-//     for factor_solve): one block per lane factors b = 32 columns at a
-//     time, right-looking. An unblocked step would move the whole
-//     trailing submatrix through HBM (~89 MB a lane at n = 256, more
-//     than L2 holds across the resident lanes); a panel step moves it
-//     once per b columns. Each panel:
+//     for factor_solve): the same panel step on a panel staged into
+//     shared memory. (Its code is its own: written as one with the
+//     resident tier's, it ran slower on an H100.) An unblocked step would
+//     move the whole trailing submatrix through HBM (~89 MB a lane at
+//     n = 256, more than L2 holds across the resident lanes); a panel
+//     step moves it once per b columns. Each panel:
 //       1. its columns, rows k0.., are staged into shared memory and
-//          factored there with one block barrier a step: rows are never
-//          exchanged, each thread owns rows and tracks their positions
-//          (as the warp tier does), and the pivot is a (|a|, position)
-//          max-reduction, per warp by shuffles and then across warps;
+//          factored there;
 //       2. the panel goes back by position, and the panel's row order
 //          is applied to the columns left of it (through a shared stash
 //          of the moved rows);
 //       3. the columns right of it, in chunks of c: the moved rows are
-//          stashed, the U rows formed in the stash against the unit-lower
-//          panel (a warp per 8 columns, lane r on row r, ascending k),
-//          and each thread loads a 4 x 4 tile of the trailing rows once,
-//          applies the b updates in ascending k from the shared panel
-//          and U chunk, and writes it once.
+//          stashed, the U rows formed in the stash, and the trailing rows
+//          updated in register tiles as in the resident tier.
 //     The first panel reads the input out of place (its trailing rows
-//     through the position map), so nothing copies A first. The
-//     contract forbids FMA, so the FP64 tensor cores (DMMA fuses the
-//     multiply-add) are out: the floor is two vector instructions per
-//     update. b (32 down to 1) and c (64, 32, 16) are the shape that
-//     keeps the most lanes on an SM (b = 16 at n = 512). factor_solve
-//     then substitutes in warp 0, as the block tier does, with y in
-//     shared memory and the factors in device memory.
-//   lu_solve is one block per lane at every n: the factors in device
-//   memory, the permuted right-hand side in shared memory.
+//     through the position map), so nothing copies A first. b (32 down
+//     to 1) and c (64, 32, 16) are the shape that keeps the most lanes on
+//     an SM (b = 16 at n = 512). factor_solve then substitutes in warp 0,
+//     with y in shared memory and the factors in device memory.
+//   lu_solve off the warp tier is a tiled substitution, one block per
+//   lane (see lu_solve_kernel): the factors stream in coalesced 32 x 32
+//   tiles through each warp's own shared tile, each diagonal tile is
+//   solved by shuffles, each off-diagonal one applied by the warp that
+//   owns its rows, one block barrier per tile column and pass. The lane
+//   takes the most warps (up to one per tile row, 8) with which every
+//   lane is resident at once, else one: the solve is latency-bound, so
+//   where lanes come in waves, lanes in flight beat warps per lane
+//   (n = 165 and 256 at 2,048 lanes take one warp, n = 512 at 256 lanes
+//   eight).
 //   The right-hand sides [n, nrhs] stay in shared memory on every tier
-//   but the warp tier: lu_solve needs n*nrhs*8 bytes and a panel-tier
-//   factor_solve n*nrhs*8 + 4n within the opt-in limit (227 KB on an
-//   H100, e.g. nrhs <= 56 at n = 512; the panel's working set is reused
-//   for them); a larger launch is refused with a CUDA error, which the
-//   wrappers raise. The sweep's solves take nrhs = 1.
+//   but the warp tier: lu_solve needs n*nrhs*8 bytes (a tile of 8,448
+//   bytes a warp beside them where they leave room; the threads read the
+//   factors from device memory where they leave none), a resident
+//   factor_solve its matrix beside them and a panel-tier factor_solve
+//   n*nrhs*8 + 4n (the panel's working set is reused for them), within
+//   the opt-in limit (227 KB on an H100, e.g. nrhs <= 56 at n = 512); a
+//   larger launch is refused with a CUDA error, which the wrappers raise.
+//   The sweep's solves take nrhs = 1.
 
 #include <cuda_runtime.h>
 
@@ -114,11 +134,47 @@ __device__ __forceinline__ double upd(double a, double f, double u) {
   return __dsub_rn(a, __dmul_rn(f, u));
 }
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Substitution by one group of NP threads (a warp, or a half-warp with
+// NP = 16: the shuffles are taken by the whole warp) over the unknowns at
+// positions 0 .. m-1 (m <= NP, the same across the warp). The thread holds
+// y at position `pos`; `row(i)` is its row's factor entry in column i (L
+// left of the diagonal, U on and right of it) and `src(i)` the thread of
+// the group that holds position i. Each finished unknown is broadcast by
+// a shuffle: forward, y takes its updates in ascending i; backward, in
+// descending i, and is divided after its last one.
+template <int NP, typename Row, typename Src>
+__device__ __forceinline__ double warp_forward(double y, int pos, int m,
+                                               Row row, Src src) {
+#pragma unroll
+  for (int i = 0; i < NP - 1; ++i) {
+    if (i + 1 < m) {
+      const double yi = __shfl_sync(kFullWarp, y, src(i), NP);
+      if (pos > i) y = upd(y, row(i), yi);
+    }
+  }
+  return y;
+}
+
+template <int NP, typename Row, typename Src>
+__device__ __forceinline__ double warp_backward(double y, int pos, int m,
+                                                Row row, Src src) {
+#pragma unroll
+  for (int i = NP - 1; i >= 0; --i) {
+    if (i < m) {
+      if (pos == i) y = y / row(i);
+      const double yi = __shfl_sync(kFullWarp, y, src(i), NP);
+      if (pos < i) y = upd(y, row(i), yi);
+    }
+  }
+  return y;
+}
+
 // ---------------------------------------------------------------------
 // Warp tier: n == NP (16 or 32), one group of NP threads per lane.
 
 constexpr int kWarpTierThreads = 128;
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Collectives over this thread's group of NP lanes, taken by the whole
 // warp at once (all its threads call them together): a collective with a
@@ -161,16 +217,19 @@ __device__ __forceinline__ unsigned group_ballot(bool pred) {
   }
 }
 
-// Factor each lane of A [lanes, NP, NP]. Without kSolve the factors go
-// to LU and the permutation to perm; with kSolve b [lanes, NP, nrhs] is
-// solved into x and the factors never leave registers.
-//
+// What a warp-tier launch does with each lane's NP x NP block: factor it
+// (LU, perm out), factor and solve it (b in, x out; the factors never
+// leave registers), or solve with it as factors (LU and perm in, b in,
+// x out).
+enum WarpJob { kFactorJob, kFactorSolveJob, kSolveJob };
+
 // Rows are never exchanged: thread r keeps row r and its position `pos`
 // in the pivoted order. Step k swaps the positions of the pivot row and
 // the row at position k, and every row at a position past k takes the
 // update -- the operations the exchanging algorithm applies to each row,
-// in the same order, so LU and perm come out bit for bit the same.
-template <int NP, bool kSolve>
+// in the same order, so LU and perm come out bit for bit the same. The
+// factors of kSolveJob are in position order: row r at position r.
+template <int NP, int kJob>
 __device__ __forceinline__ void lu_warp(const double* __restrict__ A,
                                         double* __restrict__ LU,
                                         int* __restrict__ perm,
@@ -210,60 +269,63 @@ __device__ __forceinline__ void lu_warp(const double* __restrict__ A,
   // of the step, so one __syncwarp a step orders its write before the
   // reads of the same step and after the reads two steps back.
   int pos = r;
+  if constexpr (kJob != kSolveJob) {
 #pragma unroll
-  for (int k = 0; k < n - 1; ++k) {
-    // Pivot: max |a_rk| over the rows at positions k..n-1, the first
-    // position on a tie; NaN is no candidate. A non-negative double
-    // orders as its (high word, low word) pair, so a max-reduction of
-    // the high words decides unless they tie. The tie branches are
-    // taken by the whole warp when either of its groups needs them.
-    // Non-candidates take -2 and the row at position k -1 (so an
-    // all-NaN column keeps it).
-    const double v = fabs(a[k]);
-    const bool cand = pos >= k && v > -1.0;
-    const int hi = cand ? __double2hiint(v) : (pos == k ? -1 : -2);
-    const int max_hi = group_max<NP>(hi, -2);  // (never short-circuited)
-    bool top = hi == max_hi;
-    unsigned hit = group_ballot<NP>(top);
-    if (warp_any<NP>(hit & (hit - 1))) {
-      const unsigned lo =
-          top ? static_cast<unsigned>(__double2loint(v)) : 0u;
-      const unsigned max_lo = group_max<NP>(lo, 0u);
-      top = top && lo == max_lo;
-      hit = group_ballot<NP>(top);
+    for (int k = 0; k < n - 1; ++k) {
+      // Pivot: max |a_rk| over the rows at positions k..n-1, the first
+      // position on a tie; NaN is no candidate. A non-negative double
+      // orders as its (high word, low word) pair, so a max-reduction of
+      // the high words decides unless they tie. The tie branches are
+      // taken by the whole warp when either of its groups needs them.
+      // Non-candidates take -2 and the row at position k -1 (so an
+      // all-NaN column keeps it).
+      const double v = fabs(a[k]);
+      const bool cand = pos >= k && v > -1.0;
+      const int hi = cand ? __double2hiint(v) : (pos == k ? -1 : -2);
+      const int max_hi = group_max<NP>(hi, -2);  // (never short-circuited)
+      bool top = hi == max_hi;
+      unsigned hit = group_ballot<NP>(top);
       if (warp_any<NP>(hit & (hit - 1))) {
-        const int key = top ? NP - pos : 0;  // the first position wins
-        const int max_key = group_max<NP>(key, 0);
-        top = top && key == max_key;
+        const unsigned lo =
+            top ? static_cast<unsigned>(__double2loint(v)) : 0u;
+        const unsigned max_lo = group_max<NP>(lo, 0u);
+        top = top && lo == max_lo;
         hit = group_ballot<NP>(top);
+        if (warp_any<NP>(hit & (hit - 1))) {
+          const int key = top ? NP - pos : 0;  // the first position wins
+          const int max_key = group_max<NP>(key, 0);
+          top = top && key == max_key;
+          hit = group_ballot<NP>(top);
+        }
       }
-    }
-    const int q = __ffs(static_cast<int>(hit)) - 1;
-    const int q_pos = __shfl_sync(kFullWarp, pos, q, NP);
-    if (pos == k) pos = q_pos;
-    if (r == q) pos = k;
-    // The pivot row's columns k.. go to the tile, read back with
-    // same-address 16-byte loads.
-    double* pb = tile + (k & 1) * NP;
-    if (r == q) {
+      const int q = __ffs(static_cast<int>(hit)) - 1;
+      const int q_pos = __shfl_sync(kFullWarp, pos, q, NP);
+      if (pos == k) pos = q_pos;
+      if (r == q) pos = k;
+      // The pivot row's columns k.. go to the tile, read back with
+      // same-address 16-byte loads.
+      double* pb = tile + (k & 1) * NP;
+      if (r == q) {
 #pragma unroll
-      for (int j = k & ~1; j < NP; j += 2)
-        reinterpret_cast<double2*>(pb)[j >> 1] = make_double2(a[j], a[j + 1]);
-    }
-    __syncwarp();
-    if (pos > k) {
-      const double f = a[k] / pb[k];
-      a[k] = f;
+        for (int j = k & ~1; j < NP; j += 2)
+          reinterpret_cast<double2*>(pb)[j >> 1] =
+              make_double2(a[j], a[j + 1]);
+      }
+      __syncwarp();
+      if (pos > k) {
+        const double f = a[k] / pb[k];
+        a[k] = f;
 #pragma unroll
-      for (int j = (k + 1) & ~1; j < NP; j += 2) {
-        const double2 u = reinterpret_cast<const double2*>(pb)[j >> 1];
-        if (j > k) a[j] = upd(a[j], f, u.x);
-        a[j + 1] = upd(a[j + 1], f, u.y);
+        for (int j = (k + 1) & ~1; j < NP; j += 2) {
+          const double2 u = reinterpret_cast<const double2*>(pb)[j >> 1];
+          if (j > k) a[j] = upd(a[j], f, u.x);
+          a[j + 1] = upd(a[j + 1], f, u.y);
+        }
       }
     }
   }
 
-  if constexpr (!kSolve) {
+  if constexpr (kJob == kFactorJob) {
     __syncwarp();  // the last step's pivot row is read; reuse the tile
 #pragma unroll
     for (int j = 0; j < n; ++j) tile[pos * LD + j] = a[j];
@@ -275,42 +337,43 @@ __device__ __forceinline__ void lu_warp(const double* __restrict__ A,
       perm[lane * n + pos] = r;
     }
   } else {
-    // Thread r holds y at its row's position, b[r] to begin with (b[perm]
-    // in pivoted order), and each finished unknown is broadcast from the
-    // thread at its position (at[i], the inverse permutation, gathered
-    // once through the tile); the update order is lu_solve_kernel's.
-    int* inv = reinterpret_cast<int*>(tile + 2 * NP);
-    inv[pos] = r;
-    __syncwarp();
+    // Thread r holds y at its row's position: b[r] to begin with when it
+    // factored (b[perm] in pivoted order), b[perm[r]] when it was given
+    // the factors. Each finished unknown comes from the thread at its
+    // position (at[i], the inverse permutation, gathered once through the
+    // tile after a factorization).
     int at[NP];
+    int b_row = r;
+    if constexpr (kJob == kFactorSolveJob) {
+      int* inv = reinterpret_cast<int*>(tile + 2 * NP);
+      inv[pos] = r;
+      __syncwarp();
 #pragma unroll
-    for (int i = 0; i < n; ++i) at[i] = inv[i];
+      for (int i = 0; i < n; ++i) at[i] = inv[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < n; ++i) at[i] = i;
+      if (live) b_row = perm[lane * n + r];
+    }
+    const auto row = [&](int i) { return a[i]; };
+    const auto src = [&](int i) { return at[i]; };
     const long long nk = static_cast<long long>(n) * nrhs;
     for (int c = 0; c < nrhs; ++c) {
-      double y =
-          live ? b[lane * nk + static_cast<long long>(r) * nrhs + c] : 0.0;
-#pragma unroll
-      for (int i = 0; i < n - 1; ++i) {
-        const double yi = __shfl_sync(kFullWarp, y, at[i], NP);
-        if (pos > i) y = upd(y, a[i], yi);
-      }
-#pragma unroll
-      for (int i = n - 1; i >= 0; --i) {
-        if (pos == i) y = y / a[i];
-        const double yi = __shfl_sync(kFullWarp, y, at[i], NP);
-        if (pos < i) y = upd(y, a[i], yi);
-      }
+      double y = live
+          ? b[lane * nk + static_cast<long long>(b_row) * nrhs + c] : 0.0;
+      y = warp_forward<NP>(y, pos, n, row, src);
+      y = warp_backward<NP>(y, pos, n, row, src);
       if (live) x[lane * nk + static_cast<long long>(pos) * nrhs + c] = y;
     }
   }
 }
 
-template <int NP, bool kSolve>
+template <int NP, int kJob>
 __global__ void __launch_bounds__(kWarpTierThreads)
 lu_warp_kernel(const double* __restrict__ A, double* __restrict__ LU,
                int* __restrict__ perm, const double* __restrict__ b,
                double* __restrict__ x, long long lanes, int nrhs) {
-  lu_warp<NP, kSolve>(A, LU, perm, b, x, lanes, nrhs);
+  lu_warp<NP, kJob>(A, LU, perm, b, x, lanes, nrhs);
 }
 
 // lu_factor at n = 32 (the ABI flagship's direction solves): at most 102
@@ -319,171 +382,53 @@ lu_warp_kernel(const double* __restrict__ A, double* __restrict__ LU,
 __global__ void __launch_bounds__(kWarpTierThreads, 5)
 lu_factor_warp32_kernel(const double* __restrict__ A, double* __restrict__ LU,
                         int* __restrict__ perm, long long lanes) {
-  lu_warp<32, false>(A, LU, perm, nullptr, nullptr, lanes, 0);
+  lu_warp<32, kFactorJob>(A, LU, perm, nullptr, nullptr, lanes, 0);
 }
 
 // ---------------------------------------------------------------------
-// Block tier: one block per lane.
+// Resident and panel tiers: one block per lane, rows owned by threads
+// and never exchanged.
 
-// Threads per block of the solve (warp 0 runs the pivot search, so at
-// least one full warp) and of the block-tier factorization.
-inline int solve_threads(int n) {
-  if (n <= 16) return 64;
-  if (n <= 32) return 128;
-  return 256;
-}
-
-// Six 256-thread blocks fit an SM's registers (at most 42 a thread): at
-// n = 64 shared memory admits six lanes an SM, and the registers must too.
-constexpr int min_blocks(int threads) { return threads == 256 ? 6 : 1; }
+constexpr int kPanelThreads = 256;
+constexpr int kPanelWarps = kPanelThreads / 32;
+constexpr int kPanelB = 32;  // panel width
 
 // Row stride of a matrix resident in shared memory: odd, so the 8-byte
 // entries of one column fall on distinct bank pairs.
 __host__ __device__ inline int smem_ld(int n) { return n | 1; }
 
-// Copy an n x n matrix between row strides: warps over rows, threads
-// over columns (coalesced).
-__device__ void copy_matrix(const double* src, int lds, double* dst, int ldd,
-                            int n) {
-  const int nw = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < n; i += nw)
-    for (int j = threadIdx.x & 31; j < n; j += 32)
-      dst[i * ldd + j] = src[i * lds + j];
-}
-
-// In-place partial-pivoted LU of one lane's [n, n] matrix `a` (row
-// stride `ld`, in shared memory). `perm` ([n] int, shared)
-// receives the permutation. Expects `a` complete (a barrier after the
-// load); ends with a barrier.
-__device__ void factor_lane(double* a, int ld, int* perm, int n) {
-  __shared__ int s_pivot;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nw = nt >> 5;
-  for (int i = tid; i < n; i += nt) perm[i] = i;
-  for (int k = 0; k < n - 1; ++k) {
-    if (warp == 0) {
-      // Each lane of warp 0 scans rows k+lane, k+lane+32, ... in
-      // increasing order keeping the first maximum; the shuffle
-      // reduction then prefers the larger value, the smaller row on a
-      // tie. NaN entries never win; an all-NaN column keeps row k.
-      double best = -1.0;
-      int row = n;
-      for (int r = k + lane; r < n; r += 32) {
-        const double v = fabs(a[r * ld + k]);
-        if (v > best) {
-          best = v;
-          row = r;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const double ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int orow = __shfl_down_sync(0xffffffffu, row, off);
-        if (ov > best || (ov == best && orow < row)) {
-          best = ov;
-          row = orow;
-        }
-      }
-      if (lane == 0) s_pivot = row < n ? row : k;
+// dst(e, j) = src(e, j) for e < rows, j < w: the threads over the
+// flattened block (consecutive threads on consecutive columns), four
+// loads in flight each.
+template <int kThreads = kPanelThreads, typename Src, typename Dst>
+__device__ __forceinline__ void copy_block(int rows, int w, Src src,
+                                           Dst dst) {
+  const int total = rows * w;
+  for (int base = threadIdx.x; base < total; base += 4 * kThreads) {
+    double v[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = base + t * kThreads;
+      if (i < total) v[t] = src(i / w, i % w);
     }
-    __syncthreads();
-    const int p = s_pivot;
-    if (p != k) {
-      for (int j = tid; j < n; j += nt) {
-        const double t = a[k * ld + j];
-        a[k * ld + j] = a[p * ld + j];
-        a[p * ld + j] = t;
-      }
-      if (tid == 0) {
-        const int t = perm[k];
-        perm[k] = perm[p];
-        perm[p] = t;
-      }
-      __syncthreads();
-    }
-    // Warp w updates rows k+1+w, k+1+w+nw, ...: for up to 32 of them at
-    // a time, each thread divides one row's column-k entry (the divisions
-    // run in parallel) and stores the multiplier over it; then, row by
-    // row, the multiplier is broadcast and the threads walk the columns.
-    const double* u = a + k * ld;
-    const double pivot = u[k];
-    for (int base = k + 1 + warp; base < n; base += 32 * nw) {
-      const int mine = base + lane * nw;
-      double f = 0.0;
-      if (mine < n) {
-        f = a[mine * ld + k] / pivot;
-        a[mine * ld + k] = f;
-      }
-      const int rows = min(32, (n - base + nw - 1) / nw);
-#pragma unroll 4
-      for (int t = 0; t < rows; ++t) {
-        const double ft = __shfl_sync(0xffffffffu, f, t);
-        double* row = a + (base + t * nw) * ld;
-        for (int j = k + 1 + lane; j < n; j += 32)
-          row[j] = upd(row[j], ft, u[j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Solve (LU) x = y in place for one lane: `lu` is the [n, n]
-// factorization at row stride `ld` (device memory), `y` the
-// permuted right-hand sides [n, nrhs] in shared memory.
-__device__ void solve_lane(const double* lu, int ld, double* y, int n,
-                           int nrhs) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int i = 0; i < n - 1; ++i) {
-    const int count = (n - 1 - i) * nrhs;
-    for (int e = tid; e < count; e += nt) {
-      const int j = i + 1 + e / nrhs;
-      const int c = e % nrhs;
-      y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], y[i * nrhs + c]);
-    }
-    __syncthreads();
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    const double d = lu[i * ld + i];
-    for (int c = tid; c < nrhs; c += nt) y[i * nrhs + c] = y[i * nrhs + c] / d;
-    __syncthreads();
-    const int count = i * nrhs;
-    for (int e = tid; e < count; e += nt) {
-      const int j = e / nrhs;
-      const int c = e % nrhs;
-      y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], y[i * nrhs + c]);
-    }
-    __syncthreads();
-  }
-}
-
-// solve_lane's arithmetic, in the same order, run by warp 0 alone: no
-// block barrier per step, only __syncwarp (the other warps idle).
-__device__ void solve_lane_warp(const double* lu, int ld, double* y, int n,
-                                int nrhs) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  for (int c = 0; c < nrhs; ++c) {
-    for (int i = 0; i < n - 1; ++i) {
-      const double yi = y[i * nrhs + c];
-      for (int j = i + 1 + lane; j < n; j += 32)
-        y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], yi);
-      __syncwarp();
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      if (lane == 0) y[i * nrhs + c] = y[i * nrhs + c] / lu[i * ld + i];
-      __syncwarp();
-      const double yi = y[i * nrhs + c];
-      for (int j = lane; j < i; j += 32)
-        y[j * nrhs + c] = upd(y[j * nrhs + c], lu[j * ld + i], yi);
-      __syncwarp();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = base + t * kThreads;
+      if (i < total) dst(i / w, i % w) = v[t];
     }
   }
 }
 
-// y = b[perm] for one lane (shared memory), then a barrier.
+// Whether pivot candidate (key, at) beats (best, best_at): the larger
+// key, the smaller position on a tie. `at` packs a candidate's position
+// (high 16 bits) and row (low 16: the tiers' shared memory keeps n
+// below 12,000).
+__device__ __forceinline__ bool pivot_beats(double key, int at, double best,
+                                            int best_at) {
+  return key > best || (key == best && at < best_at);
+}
+
+// y = b[p] for one lane (shared memory), then a barrier.
 __device__ void gather_rhs(const double* bl, const int* p, double* y, int n,
                            int nrhs) {
   for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) {
@@ -494,58 +439,30 @@ __device__ void gather_rhs(const double* bl, const int* p, double* y, int n,
   __syncthreads();
 }
 
-// The shared-memory block tier: the lane's matrix lives in shared memory
-// at an odd row stride, between one coalesced copy in and one out.
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads, min_blocks(kThreads))
-lu_factor_kernel(const double* __restrict__ A, double* LU,
-                 int* __restrict__ perm, int n) {
-  extern __shared__ double smem[];
-  const long long lane = blockIdx.x;
-  const long long nn = static_cast<long long>(n) * n;
-  const int ld = smem_ld(n);
-  int* p = reinterpret_cast<int*>(smem + n * ld);
-  copy_matrix(A + lane * nn, n, smem, ld, n);
-  __syncthreads();
-  factor_lane(smem, ld, p, n);
-  copy_matrix(smem, ld, LU + lane * nn, n, n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) perm[lane * n + i] = p[i];
-}
-
-__global__ void lu_solve_kernel(const double* __restrict__ LU,
-                                const int* __restrict__ perm,
-                                const double* __restrict__ b,
-                                double* __restrict__ x, int n, int nrhs) {
-  extern __shared__ double smem[];
-  double* y = smem;
-  const long long lane = blockIdx.x;
-  const long long nk = static_cast<long long>(n) * nrhs;
-  gather_rhs(b + lane * nk, perm + lane * n, y, n, nrhs);
-  solve_lane(LU + lane * static_cast<long long>(n) * n, n, y, n, nrhs);
-  double* xl = x + lane * nk;
-  for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) xl[e] = y[e];
-}
-
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads, min_blocks(kThreads))
-factor_solve_kernel(const double* __restrict__ A,
-                    const double* __restrict__ b, double* __restrict__ x,
-                    int n, int nrhs) {
-  extern __shared__ double smem[];
-  const long long lane = blockIdx.x;
-  const long long nn = static_cast<long long>(n) * n;
-  const long long nk = static_cast<long long>(n) * nrhs;
-  const int ld = smem_ld(n);
-  double* y = smem + n * ld;
-  int* p = reinterpret_cast<int*>(y + n * nrhs);
-  copy_matrix(A + lane * nn, n, smem, ld, n);
-  __syncthreads();
-  factor_lane(smem, ld, p, n);
-  gather_rhs(b + lane * nk, p, y, n, nrhs);
-  solve_lane_warp(smem, ld, y, n, nrhs);
+// Solve (LU) x = y in place for one lane, warp 0 alone (no block
+// barriers; the other warps return): `row(j)` points at the factors' row
+// at position j, y [n, nrhs] is in shared memory. Each entry takes its
+// updates in the order of warp_forward / warp_backward.
+template <typename Row>
+__device__ void solve_lane_warp(Row row, double* y, int n, int nrhs) {
   if (threadIdx.x >= 32) return;
-  double* xl = x + lane * nk;
-  for (int e = threadIdx.x; e < n * nrhs; e += 32) xl[e] = y[e];
+  const int lane = threadIdx.x;
+  for (int c = 0; c < nrhs; ++c) {
+    for (int i = 0; i < n - 1; ++i) {
+      const double yi = y[i * nrhs + c];
+      for (int j = i + 1 + lane; j < n; j += 32)
+        y[j * nrhs + c] = upd(y[j * nrhs + c], row(j)[i], yi);
+      __syncwarp();
+    }
+    for (int i = n - 1; i >= 0; --i) {
+      if (lane == 0) y[i * nrhs + c] = y[i * nrhs + c] / row(i)[i];
+      __syncwarp();
+      const double yi = y[i * nrhs + c];
+      for (int j = lane; j < i; j += 32)
+        y[j * nrhs + c] = upd(y[j * nrhs + c], row(j)[i], yi);
+      __syncwarp();
+    }
+  }
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when the
@@ -572,11 +489,276 @@ long long smem_optin() {
 }
 
 // ---------------------------------------------------------------------
+// Resident tier: one block per lane, the matrix in shared memory.
+
+// Steps k = 0 .. steps-1 of the panel at columns k0 .. k0+bw-1 of the
+// lane's matrix `a` (row stride ld): thread t owns rows t, t + kThreads,
+// ...; pos[r] is row r's position (rows at positions below k0 are
+// pivoted). The pivot of column k0 + k is the maximum |a| over positions
+// k0 + k .. (the first position on a tie): a (|a|, position)
+// max-reduction by shuffles in each warp, then across warps through a
+// double-buffered shared slot. NaN is no candidate: non-candidates key
+// -2, the row at position k0 + k -1 (an all-NaN column keeps it). Each
+// thread then divides and updates the panel columns of its own rows,
+// which only it reads, so one barrier a step orders the updates before
+// the next search. Ends without a barrier.
+template <int kThreads>
+__device__ __forceinline__ void resident_steps(double* a, int ld, int* pos,
+                                               int n, int k0, int bw,
+                                               int steps) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ double red_key[2][kWarps];
+  __shared__ int red_at[2][kWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  double* P = a + k0;
+  for (int k = 0; k < steps; ++k) {
+    double best = -3.0;
+    int best_at = n << 16;
+    for (int r = tid; r < n; r += kThreads) {
+      const int p = pos[r] - k0;
+      if (p < k) continue;
+      const double v = fabs(P[r * ld + k]);
+      const double key = v >= 0.0 ? v : (p == k ? -1.0 : -2.0);
+      if (pivot_beats(key, p << 16 | r, best, best_at)) {
+        best = key;
+        best_at = p << 16 | r;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const double o_key = __shfl_xor_sync(kFullWarp, best, off, 32);
+      const int o_at = __shfl_xor_sync(kFullWarp, best_at, off, 32);
+      if (pivot_beats(o_key, o_at, best, best_at)) {
+        best = o_key;
+        best_at = o_at;
+      }
+    }
+    const int s = k & 1;
+    if (lane == 0) {
+      red_key[s][warp] = best;
+      red_at[s][warp] = best_at;
+    }
+    __syncthreads();
+    best = red_key[s][0];
+    best_at = red_at[s][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      if (pivot_beats(red_key[s][w], red_at[s][w], best, best_at)) {
+        best = red_key[s][w];
+        best_at = red_at[s][w];
+      }
+    }
+    const int best_pos = best_at >> 16;
+    const int best_row = best_at & 0xffff;
+    const double* u = P + best_row * ld;
+    const double pivot = u[k];
+    for (int r = tid; r < n; r += kThreads) {
+      int p = pos[r] - k0;
+      if (p == k) p = best_pos;
+      if (r == best_row) p = k;
+      pos[r] = p + k0;
+      if (p <= k) continue;
+      double* row = P + r * ld;
+      const double f = row[k] / pivot;
+      row[k] = f;
+      for (int j0 = k + 1; j0 < bw; j0 += 8) {  // eight loads in flight
+        double v[8], uj[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (j0 + t < bw) {
+            v[t] = row[j0 + t];
+            uj[t] = u[j0 + t];
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          if (j0 + t < bw) row[j0 + t] = upd(v[t], f, uj[t]);
+      }
+    }
+  }
+}
+
+// The U rows of the panel at columns k0 .. k0+bw-1 (the rows at
+// positions k0 .., at[] holding them) in columns c0 .. c0+w-1, each entry
+// taking the panel's updates in ascending k against the unit-lower panel.
+// A warp per 8 columns, lane r on the row at position k0 + r.
+template <int kThreads>
+__device__ __forceinline__ void resident_u_rows(double* a, int ld,
+                                                const int* at, int k0,
+                                                int bw, int c0, int w) {
+  constexpr int kWarps = kThreads / 32;
+  const int r = threadIdx.x & 31;
+  const bool live = r < bw;
+  double* row = a + at[k0 + (live ? r : 0)] * ld;
+  const double* l = row + k0;
+  for (int g = (threadIdx.x >> 5) * 8; g < w; g += kWarps * 8) {
+    double v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      v[t] = live && g + t < w ? row[c0 + g + t] : 0.0;
+    for (int q = 0; q + 1 < bw; ++q) {
+      const double lq = l[q];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const double uq = __shfl_sync(kFullWarp, v[t], q);
+        if (r > q && live) v[t] = upd(v[t], lq, uq);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (live && g + t < w) row[c0 + g + t] = v[t];
+  }
+}
+
+// The trailing rows (positions c0 .. c0+w-1) in columns c0 .. c0+w-1,
+// each entry taking the panel's bw updates in ascending k. Each warp
+// takes 16 x 32 tiles, each thread a 4 x 4 tile (rows 4 apart, columns 8
+// apart) loaded once, updated in registers and written once.
+template <int kThreads>
+__device__ __forceinline__ void resident_trailing(double* a, int ld,
+                                                  const int* at, int k0,
+                                                  int bw, int c0, int w) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+  const int cl = lane & 7;
+  const int col_tiles = (w + 31) / 32;
+  const int tiles = (w + 15) / 16 * col_tiles;
+  for (int t = threadIdx.x >> 5; t < tiles; t += kWarps) {
+    const int ib = t / col_tiles * 16 + rg;
+    const int j0 = t % col_tiles * 32 + cl;
+    double* row[4];
+    bool row_ok[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      row_ok[p] = ib + 4 * p < w;
+      row[p] = a + at[c0 + (row_ok[p] ? ib + 4 * p : 0)] * ld;
+    }
+    int col[4];
+    bool col_ok[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      col_ok[q] = j0 + 8 * q < w;
+      col[q] = c0 + (col_ok[q] ? j0 + 8 * q : w - 1);
+    }
+    double acc[4][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][q] = row[p][col[q]];
+#pragma unroll 4
+    for (int k = 0; k < bw; ++k) {
+      const double* uk = a + at[k0 + k] * ld;
+      double l[4], u[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) l[p] = row[p][k0 + k];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u[q] = uk[col[q]];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = upd(acc[p][q], l[p], u[q]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (row_ok[p] && col_ok[q]) row[p][col[q]] = acc[p][q];
+  }
+}
+
+// Partial-pivoted LU of one lane's [n, n] matrix `a` (row stride `ld`,
+// shared memory), right-looking, kPanelB columns at a time, rows never
+// exchanged. Each panel: its steps (resident_steps); the map at[position]
+// = row; the U rows right of the panel and the trailing rows in register
+// tiles. On return pos [n] holds each row's position and at [n] the row
+// at each position (the permutation); ends with a barrier. The barrier
+// after the first initialization also orders the caller's copy of `a`.
+template <int kThreads>
+__device__ void factor_resident(double* a, int ld, int n, int* pos,
+                                int* at) {
+  for (int r = threadIdx.x; r < n; r += kThreads) pos[r] = at[r] = r;
+  __syncthreads();
+  for (int k0 = 0; k0 < n - 1; k0 += kPanelB) {
+    const int bw = min(kPanelB, n - k0);
+    resident_steps<kThreads>(a, ld, pos, n, k0, bw, min(bw, n - 1 - k0));
+    __syncthreads();
+    for (int r = threadIdx.x; r < n; r += kThreads)
+      if (pos[r] >= k0) at[pos[r]] = r;
+    __syncthreads();
+    const int c0 = k0 + bw;
+    if (c0 == n) break;
+    resident_u_rows<kThreads>(a, ld, at, k0, bw, c0, n - c0);
+    __syncthreads();
+    resident_trailing<kThreads>(a, ld, at, k0, bw, c0, n - c0);
+    __syncthreads();
+  }
+}
+
+// Shared memory of the resident tier (nrhs = 0 for lu_factor): the
+// matrix, the right-hand sides, each row's position and the row at each
+// position.
+long long resident_smem(int n, int nrhs) {
+  return (static_cast<long long>(n) * smem_ld(n) +
+          static_cast<long long>(n) * nrhs) * 8 + 8LL * n;
+}
+
+// Six 128-thread lanes an SM (n = 64) must fit its registers.
+constexpr int resident_min_blocks(int threads) {
+  return threads == 128 ? 6 : 2;
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, resident_min_blocks(kThreads))
+lu_factor_kernel(const double* __restrict__ A, double* __restrict__ LU,
+                 int* __restrict__ perm, int n) {
+  extern __shared__ double smem[];
+  const long long lane = blockIdx.x;
+  const long long nn = static_cast<long long>(n) * n;
+  const int ld = smem_ld(n);
+  int* pos = reinterpret_cast<int*>(smem + n * ld);
+  int* at = pos + n;
+  const double* src = A + lane * nn;
+  copy_block<kThreads>(
+      n, n, [&](int i, int j) { return src[i * n + j]; },
+      [&](int i, int j) -> double& { return smem[i * ld + j]; });
+  factor_resident<kThreads>(smem, ld, n, pos, at);
+  double* dst = LU + lane * nn;  // by position
+  copy_block<kThreads>(
+      n, n, [&](int p, int j) { return smem[at[p] * ld + j]; },
+      [&](int p, int j) -> double& { return dst[p * n + j]; });
+  for (int p = threadIdx.x; p < n; p += kThreads) perm[lane * n + p] = at[p];
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, resident_min_blocks(kThreads))
+factor_solve_kernel(const double* __restrict__ A,
+                    const double* __restrict__ b, double* __restrict__ x,
+                    int n, int nrhs) {
+  extern __shared__ double smem[];
+  const long long lane = blockIdx.x;
+  const long long nn = static_cast<long long>(n) * n;
+  const long long nk = static_cast<long long>(n) * nrhs;
+  const int ld = smem_ld(n);
+  double* y = smem + n * ld;
+  int* pos = reinterpret_cast<int*>(y + n * nrhs);
+  int* at = pos + n;
+  const double* src = A + lane * nn;
+  copy_block<kThreads>(
+      n, n, [&](int i, int j) { return src[i * n + j]; },
+      [&](int i, int j) -> double& { return smem[i * ld + j]; });
+  factor_resident<kThreads>(smem, ld, n, pos, at);
+  gather_rhs(b + lane * nk, at, y, n, nrhs);
+  solve_lane_warp([&](int j) { return smem + at[j] * ld; }, y, n, nrhs);
+  if (threadIdx.x >= 32) return;
+  double* xl = x + lane * nk;
+  for (int e = threadIdx.x; e < n * nrhs; e += 32) xl[e] = y[e];
+}
+
+// ---------------------------------------------------------------------
 // Panel tier: one block per lane, the matrix in device memory.
 
-constexpr int kPanelThreads = 256;
-constexpr int kPanelWarps = kPanelThreads / 32;
-constexpr int kPanelB = 32;  // panel width
 constexpr int kPanelC = 64;  // column chunk of the trailing update
 
 // Shared memory of the panel tier in bytes, the permutation left out:
@@ -634,36 +816,6 @@ PanelPlan panel_plan(K kernel, int n, int nrhs, long long limit) {
   return plan;
 }
 
-// dst(e, j) = src(e, j) for e < rows, j < w: the threads over the
-// flattened block (consecutive threads on consecutive columns), four
-// loads in flight each.
-template <typename Src, typename Dst>
-__device__ __forceinline__ void copy_block(int rows, int w, Src src,
-                                           Dst dst) {
-  const int total = rows * w;
-  for (int base = threadIdx.x; base < total; base += 4 * kPanelThreads) {
-    double v[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int i = base + t * kPanelThreads;
-      if (i < total) v[t] = src(i / w, i % w);
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int i = base + t * kPanelThreads;
-      if (i < total) dst(i / w, i % w) = v[t];
-    }
-  }
-}
-
-// Whether pivot candidate (key, at) beats (best, best_at): the larger
-// key, the smaller position on a tie. `at` packs a candidate's position
-// (high 16 bits) and row (low 16: the tier's shared memory keeps n
-// below 12,000).
-__device__ __forceinline__ bool pivot_beats(double key, int at, double best,
-                                            int best_at) {
-  return key > best || (key == best && at < best_at);
-}
 
 // U rows of one column chunk: the stash rows 0..bw-1 of its w columns
 // (the panel's row order already applied) against the unit-lower panel,
@@ -959,45 +1111,288 @@ factor_solve_panel_kernel(const double* __restrict__ A,
   double* a = work + lane * nn;
   factor_panels(A + lane * nn, a, n, pb, c, smem, p);
   gather_rhs(b + lane * nk, p, smem, n, nrhs);
-  solve_lane_warp(a, n, smem, n, nrhs);
+  solve_lane_warp([&](int j) { return a + j * n; }, smem, n, nrhs);
   if (threadIdx.x >= 32) return;
   double* xl = x + lane * nk;
   for (int e = threadIdx.x; e < n * nrhs; e += 32) xl[e] = smem[e];
 }
 
-// Shared memory of one shared-memory block-tier factorization (nrhs = 0
-// for lu_factor): the matrix, the right-hand sides, the permutation.
-long long factor_smem(int n, int nrhs) {
-  return (static_cast<long long>(n) * smem_ld(n) +
-          static_cast<long long>(n) * nrhs) * 8 + n * 4LL;
+// ---------------------------------------------------------------------
+// lu_solve off the warp tier: a tiled substitution, one block per lane.
+//
+// The factors go through 32 x 32 tiles; tile row I (rows 32I ..) is warp
+// I % nw's, and each thread of that warp owns one row of it. Forward
+// step J (J = 0 .. T-1): the owner of tile row J solves the diagonal
+// tile's unit-lower triangle with shuffles (warp_forward); one block
+// barrier; each warp applies tile (I, J) to its rows I > J, each row's
+// 32 updates in ascending i. Backward step J (T-1 .. 0): the diagonal
+// tile's upper triangle (warp_backward), a barrier, tiles (I, J) of rows
+// I < J in descending i. A row's updates from different tiles come in
+// step order, so each entry of y takes exactly the order of
+// warp_forward / warp_backward over all n unknowns. y [n, nrhs] stays in
+// shared memory; each warp streams its own tiles through a private
+// odd-stride tile (coalesced row loads, the next tile in registers while
+// the current one is applied). Where y leaves no room for a tile, the
+// threads read their rows from device memory instead (kStaged false).
+
+constexpr int kTile = 32;
+constexpr int kTileLd = kTile + 1;
+constexpr int kTileDoubles = kTile * kTileLd;
+constexpr int kSolveMaxWarps = 8;
+
+// One tile a warp applies: at step s (s < T forward, else backward),
+// tile row I; s == 2T once the warp has none left.
+struct SolveTask {
+  int s, I;
+};
+
+__device__ __forceinline__ int step_col(int s, int T) {
+  return s < T ? s : 2 * T - 1 - s;
 }
 
-// Shared-memory block tier launches: 256 threads a lane up to n = 128,
-// 512 above.
-template <int T>
+// The first of warp w's tile rows past J in the step's direction (may lie
+// outside 0 .. T-1).
+__device__ __forceinline__ int first_row_past(int J, bool fwd, int w,
+                                              int nw) {
+  return fwd ? J + 1 + ((w - J - 1) % nw + nw) % nw
+             : J - 1 - ((J - 1 - w) % nw + nw) % nw;
+}
+
+// The tile warp w applies after `t`: at each step the diagonal tile if
+// tile row J is the warp's, then its rows past J in the step's direction.
+__device__ SolveTask next_task(SolveTask t, int w, int nw, int T) {
+  int J = step_col(t.s, T);
+  bool fwd = t.s < T;
+  int I = t.I == J ? first_row_past(J, fwd, w, nw) : fwd ? t.I + nw
+                                                         : t.I - nw;
+  while (fwd ? I >= T : I < 0) {
+    if (++t.s == 2 * T) break;
+    J = step_col(t.s, T);
+    fwd = t.s < T;
+    I = J % nw == w ? J : first_row_past(J, fwd, w, nw);
+  }
+  t.I = I;
+  return t;
+}
+
+// Tile (I, J) of one lane's factors into v: thread j of the warp takes
+// column j of each of the tile's rows, so each row's load is coalesced;
+// 0 outside the matrix.
+__device__ __forceinline__ void load_tile(const double* lu, int n, int I,
+                                          int J, double (&v)[kTile]) {
+  const int j = threadIdx.x & 31;
+  const int rows = min(kTile, n - kTile * I);
+  const bool col_ok = kTile * J + j < n;
+  const double* p = lu + static_cast<long long>(kTile * I) * n + kTile * J + j;
+#pragma unroll
+  for (int q = 0; q < kTile; ++q)
+    v[q] = col_ok && q < rows ? p[static_cast<long long>(q) * n] : 0.0;
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kSolveMaxWarps * 32, 2)
+lu_solve_kernel(const double* __restrict__ LU, const int* __restrict__ perm,
+                const double* __restrict__ b, double* __restrict__ x, int n,
+                int nrhs) {
+  extern __shared__ double smem[];
+  const long long lane = blockIdx.x;
+  const long long nk = static_cast<long long>(n) * nrhs;
+  const int T = (n + kTile - 1) / kTile;
+  const int nw = blockDim.x >> 5;
+  const int w = threadIdx.x >> 5;
+  const int r = threadIdx.x & 31;
+  const double* lu = LU + lane * static_cast<long long>(n) * n;
+  double* y = smem;
+  double* tile = smem + n * nrhs + w * kTileDoubles;
+  SolveTask t = w == 0 ? SolveTask{0, 0} : next_task({0, 0}, w, nw, T);
+  double v[kTile];
+  if constexpr (kStaged) {
+    if (t.s < 2 * T) load_tile(lu, n, t.I, step_col(t.s, T), v);
+  }
+  gather_rhs(b + lane * nk, perm + lane * n, y, n, nrhs);
+  // This thread's row of the tile the warp applies next, tile (I, J):
+  // staged, the tile in v lands in the warp's tile and the one after
+  // goes into v.
+  const auto take = [&](int I, int J) -> const double* {
+    t = next_task(t, w, nw, T);
+    if constexpr (kStaged) {
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) tile[q * kTileLd + r] = v[q];
+      __syncwarp();
+      if (t.s < 2 * T) load_tile(lu, n, t.I, step_col(t.s, T), v);
+      return tile + r * kTileLd;
+    } else {
+      return lu + static_cast<long long>(min(kTile * I + r, n - 1)) * n +
+             kTile * J;
+    }
+  };
+  for (int s = 0; s < 2 * T; ++s) {
+    const int J = step_col(s, T);
+    const bool fwd = s < T;
+    const int c0 = kTile * J;
+    const int bw = min(kTile, n - c0);
+    if (J % nw == w) {
+      const double* row = take(J, J);
+      const auto entry = [&](int i) { return row[i]; };
+      const auto src = [](int i) { return i; };
+      for (int c = 0; c < nrhs; ++c) {
+        double* yr = y + (c0 + min(r, bw - 1)) * nrhs + c;
+        double yv = *yr;
+        yv = fwd ? warp_forward<kTile>(yv, r, bw, entry, src)
+                 : warp_backward<kTile>(yv, r, bw, entry, src);
+        if (r < bw) *yr = yv;
+      }
+    }
+    if (s != T - 1) __syncthreads();  // forward step T-1 has no off-diagonal
+    while (t.s == s) {
+      const int r0 = kTile * t.I;
+      const double* row = take(t.I, J);
+      if (r0 + r < n) {
+        for (int c = 0; c < nrhs; ++c) {
+          double* yr = y + (r0 + r) * nrhs + c;
+          const double* yj = y + c0 * nrhs + c;
+          double acc = *yr;
+          if (fwd) {
+#pragma unroll 8
+            for (int i = 0; i < bw; ++i) acc = upd(acc, row[i], yj[i * nrhs]);
+          } else {
+#pragma unroll 8
+            for (int i = bw - 1; i >= 0; --i)
+              acc = upd(acc, row[i], yj[i * nrhs]);
+          }
+          *yr = acc;
+        }
+      }
+    }
+  }
+  double* xl = x + lane * nk;
+  for (int e = threadIdx.x; e < n * nrhs; e += blockDim.x) xl[e] = y[e];
+}
+
+
+// ---------------------------------------------------------------------
+// Launches and the choice of tier.
+
+// The device's SM count and its per-SM shared memory, less what each
+// block reserves; 0 when the device cannot be queried.
+struct SmShape {
+  long long sms = 0, smem = 0, reserved = 0;
+};
+
+SmShape sm_shape() {
+  SmShape sh;
+  int dev = 0, sms = 0, smem = 0, reserved = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&smem,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved,
+                             cudaDevAttrReservedSharedMemoryPerBlock,
+                             dev) != cudaSuccess)
+    return sh;
+  sh.sms = sms;
+  sh.smem = smem;
+  sh.reserved = reserved;
+  return sh;
+}
+
+// The kernel's static shared memory in bytes, or -1.
+template <typename K>
+long long static_smem(K kernel) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+  return static_cast<long long>(attr.sharedSizeBytes);
+}
+
+// Threads a lane of the resident tier takes (`bytes` of dynamic shared
+// memory), or 0 for the panel tier. The rule is a measured one (the
+// header's table, H100): the resident tier is faster while two or
+// more lanes share an SM and slower with one (its pivot steps' latency
+// then shows; the panel tier fits more lanes), and 128 threads are
+// faster where three or more lanes fit (their registers then admit them
+// all), 256 where two do.
+template <typename K128, typename K256>
+int resident_threads(K128 k128, K256 k256, long long bytes,
+                     long long limit) {
+  const long long fixed = static_smem(k256);
+  if (fixed < 0 || static_smem(k128) < 0 || bytes + fixed > limit) return 0;
+  const SmShape sh = sm_shape();
+  const long long lanes = sh.smem / (bytes + fixed + sh.reserved);
+  if (lanes >= 3) return 128;
+  return lanes == 2 ? 256 : 0;
+}
+
+int factor_threads(int n, long long limit) {
+  return resident_threads(lu_factor_kernel<128>, lu_factor_kernel<256>,
+                          resident_smem(n, 0), limit);
+}
+
+int factor_solve_threads(int n, int nrhs, long long limit) {
+  return resident_threads(factor_solve_kernel<128>, factor_solve_kernel<256>,
+                          resident_smem(n, nrhs), limit);
+}
+
 cudaError_t launch_lu_factor(const double* A, double* LU, int* perm,
-                             long long lanes, int n, size_t bytes,
-                             cudaStream_t stream) {
-  cudaError_t err = reserve_smem(lu_factor_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  lu_factor_kernel<T><<<static_cast<unsigned int>(lanes), T, bytes,
-                        stream>>>(A, LU, perm, n);
+                             long long lanes, int n, int threads,
+                             cudaStream_t s) {
+  const size_t bytes = static_cast<size_t>(resident_smem(n, 0));
+  const unsigned int grid = static_cast<unsigned int>(lanes);
+  if (threads == 128) {
+    cudaError_t err = reserve_smem(lu_factor_kernel<128>, bytes);
+    if (err != cudaSuccess) return err;
+    lu_factor_kernel<128><<<grid, 128, bytes, s>>>(A, LU, perm, n);
+  } else {
+    cudaError_t err = reserve_smem(lu_factor_kernel<256>, bytes);
+    if (err != cudaSuccess) return err;
+    lu_factor_kernel<256><<<grid, 256, bytes, s>>>(A, LU, perm, n);
+  }
   return cudaGetLastError();
 }
 
-template <int T>
-cudaError_t launch_factor_solve(const double* A, const double* b, double* x,
-                                long long lanes, int n, int nrhs,
-                                size_t bytes, cudaStream_t stream) {
-  cudaError_t err = reserve_smem(factor_solve_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  factor_solve_kernel<T><<<static_cast<unsigned int>(lanes), T, bytes,
-                           stream>>>(A, b, x, n, nrhs);
+cudaError_t launch_lu_factor_panel(const double* A, double* LU, int* perm,
+                                   long long lanes, int n, long long limit,
+                                   cudaStream_t s) {
+  const PanelPlan plan = panel_plan(lu_factor_panel_kernel, n, 0, limit);
+  if (plan.b == 0) return cudaErrorInvalidValue;
+  lu_factor_panel_kernel<<<static_cast<unsigned int>(lanes), kPanelThreads,
+                           plan.bytes, s>>>(A, LU, perm, n, plan.b, plan.c,
+                                            plan.perm_off);
   return cudaGetLastError();
+}
+
+// Warps a lane of the tiled solve: the most (one per tile row, at most
+// 8) with which every lane is resident at once, by the occupancy
+// calculator; else one, which keeps the most lanes in flight (the lanes
+// then come in waves, and each lane's steps are latency-bound). Each warp
+// needs its tile beside y; 0 where not even one fits.
+int solve_warps(int n, int nrhs, long long lanes, long long limit) {
+  const long long ybytes = 8LL * n * nrhs;
+  const int tile_rows = (n + kTile - 1) / kTile;
+  const long long sms = sm_shape().sms;
+  if (reserve_smem(lu_solve_kernel<true>, static_cast<size_t>(limit)) !=
+      cudaSuccess)
+    return 0;
+  int fits = 0;
+  for (int nw = tile_rows < kSolveMaxWarps ? tile_rows : kSolveMaxWarps;
+       nw >= 1; --nw) {
+    const long long bytes = ybytes + 8LL * nw * kTileDoubles;
+    int blocks = 0;
+    if (bytes > limit ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, lu_solve_kernel<true>, nw * 32,
+            static_cast<size_t>(bytes)) != cudaSuccess)
+      continue;
+    fits = nw;
+    if (blocks * sms >= lanes) return nw;
+  }
+  return fits;
 }
 
 // The warp tier at n == NP.
-template <int NP, bool kSolve>
+template <int NP, int kJob>
 cudaError_t launch_warp(const double* A, double* LU, int* perm,
                         const double* b, double* x, long long lanes,
                         int nrhs, cudaStream_t stream) {
@@ -1005,15 +1400,15 @@ cudaError_t launch_warp(const double* A, double* LU, int* perm,
   const size_t bytes = sizeof(double) * kWarpTierThreads * (NP + 1);
   const unsigned int grid =
       static_cast<unsigned int>((lanes + per_block - 1) / per_block);
-  if constexpr (NP == 32 && !kSolve) {
+  if constexpr (NP == 32 && kJob == kFactorJob) {
     cudaError_t err = reserve_smem(lu_factor_warp32_kernel, bytes);
     if (err != cudaSuccess) return err;
     lu_factor_warp32_kernel<<<grid, kWarpTierThreads, bytes, stream>>>(
         A, LU, perm, lanes);
   } else {
-    cudaError_t err = reserve_smem(lu_warp_kernel<NP, kSolve>, bytes);
+    cudaError_t err = reserve_smem(lu_warp_kernel<NP, kJob>, bytes);
     if (err != cudaSuccess) return err;
-    lu_warp_kernel<NP, kSolve><<<grid, kWarpTierThreads, bytes, stream>>>(
+    lu_warp_kernel<NP, kJob><<<grid, kWarpTierThreads, bytes, stream>>>(
         A, LU, perm, b, x, lanes, nrhs);
   }
   return cudaGetLastError();
@@ -1024,12 +1419,12 @@ cudaError_t launch_warp(const double* A, double* LU, int* perm,
 extern "C" {
 
 // Device workspace factor_solve needs, in doubles per lane: n*n where
-// the lane's matrix does not fit shared memory, else 0.
+// the lane takes the panel tier, else 0.
 long long pk_factor_solve_workspace(int n, int nrhs) {
   if (n == 16 || n == 32) return 0;
-  return factor_smem(n, nrhs) > smem_optin()
-             ? static_cast<long long>(n) * n
-             : 0;
+  return factor_solve_threads(n, nrhs, smem_optin()) > 0
+             ? 0
+             : static_cast<long long>(n) * n;
 }
 
 int pk_lu_factor(const double* A, double* LU, int* perm, long long lanes,
@@ -1037,34 +1432,45 @@ int pk_lu_factor(const double* A, double* LU, int* perm, long long lanes,
   if (n < 1 || lanes < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 16)
-    return launch_warp<16, false>(A, LU, perm, nullptr, nullptr, lanes, 0, s);
+    return launch_warp<16, kFactorJob>(A, LU, perm, nullptr, nullptr, lanes,
+                                       0, s);
   if (n == 32)
-    return launch_warp<32, false>(A, LU, perm, nullptr, nullptr, lanes, 0, s);
+    return launch_warp<32, kFactorJob>(A, LU, perm, nullptr, nullptr, lanes,
+                                       0, s);
   const long long limit = smem_optin();
   if (limit <= 0) return cudaErrorInvalidDevice;
-  const size_t bytes = static_cast<size_t>(factor_smem(n, 0));
-  if (static_cast<long long>(bytes) <= limit) {
-    if (n <= 128)
-      return launch_lu_factor<256>(A, LU, perm, lanes, n, bytes, s);
-    return launch_lu_factor<512>(A, LU, perm, lanes, n, bytes, s);
-  }
-  const PanelPlan plan = panel_plan(lu_factor_panel_kernel, n, 0, limit);
-  if (plan.b == 0) return cudaErrorInvalidValue;
-  lu_factor_panel_kernel<<<static_cast<unsigned int>(lanes), kPanelThreads,
-                           plan.bytes, s>>>(A, LU, perm, n, plan.b, plan.c,
-                                            plan.perm_off);
-  return cudaGetLastError();
+  const int threads = factor_threads(n, limit);
+  if (threads > 0) return launch_lu_factor(A, LU, perm, lanes, n, threads, s);
+  return launch_lu_factor_panel(A, LU, perm, lanes, n, limit, s);
 }
 
 int pk_lu_solve(const double* LU, const int* perm, const double* b,
                 double* x, long long lanes, int n, int nrhs, void* stream) {
   if (n < 1 || nrhs < 1 || lanes < 1) return cudaErrorInvalidValue;
-  const size_t bytes = static_cast<size_t>(n) * nrhs * 8;
-  cudaError_t err = reserve_smem(lu_solve_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  lu_solve_kernel<<<static_cast<unsigned int>(lanes), solve_threads(n), bytes,
-                    static_cast<cudaStream_t>(stream)>>>(LU, perm, b, x, n,
-                                                         nrhs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* p = const_cast<int*>(perm);  // only read by kSolveJob
+  if (n == 16)
+    return launch_warp<16, kSolveJob>(LU, nullptr, p, b, x, lanes, nrhs, s);
+  if (n == 32)
+    return launch_warp<32, kSolveJob>(LU, nullptr, p, b, x, lanes, nrhs, s);
+  const long long limit = smem_optin();
+  if (limit <= 0) return cudaErrorInvalidDevice;
+  const int nw = solve_warps(n, nrhs, lanes, limit);
+  const long long ybytes = 8LL * n * nrhs;
+  const unsigned int grid = static_cast<unsigned int>(lanes);
+  if (nw > 0) {
+    const size_t bytes =
+        static_cast<size_t>(ybytes + 8LL * nw * kTileDoubles);
+    cudaError_t err = reserve_smem(lu_solve_kernel<true>, bytes);
+    if (err != cudaSuccess) return err;
+    lu_solve_kernel<true><<<grid, nw * 32, bytes, s>>>(LU, perm, b, x, n,
+                                                       nrhs);
+  } else {
+    const size_t bytes = static_cast<size_t>(ybytes);
+    cudaError_t err = reserve_smem(lu_solve_kernel<false>, bytes);
+    if (err != cudaSuccess) return err;
+    lu_solve_kernel<false><<<grid, 32, bytes, s>>>(LU, perm, b, x, n, nrhs);
+  }
   return cudaGetLastError();
 }
 
@@ -1076,23 +1482,33 @@ int pk_factor_solve(const double* A, const double* b, double* x,
   if (n < 1 || nrhs < 1 || lanes < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 16)
-    return launch_warp<16, true>(A, nullptr, nullptr, b, x, lanes, nrhs, s);
+    return launch_warp<16, kFactorSolveJob>(A, nullptr, nullptr, b, x, lanes,
+                                            nrhs, s);
   if (n == 32)
-    return launch_warp<32, true>(A, nullptr, nullptr, b, x, lanes, nrhs, s);
+    return launch_warp<32, kFactorSolveJob>(A, nullptr, nullptr, b, x, lanes,
+                                            nrhs, s);
   const long long limit = smem_optin();
   if (limit <= 0) return cudaErrorInvalidDevice;
-  const size_t bytes = static_cast<size_t>(factor_smem(n, nrhs));
-  if (static_cast<long long>(bytes) <= limit) {
-    if (n <= 128)
-      return launch_factor_solve<256>(A, b, x, lanes, n, nrhs, bytes, s);
-    return launch_factor_solve<512>(A, b, x, lanes, n, nrhs, bytes, s);
+  const int threads = factor_solve_threads(n, nrhs, limit);
+  const unsigned int grid = static_cast<unsigned int>(lanes);
+  if (threads > 0) {
+    const size_t bytes = static_cast<size_t>(resident_smem(n, nrhs));
+    if (threads == 128) {
+      cudaError_t err = reserve_smem(factor_solve_kernel<128>, bytes);
+      if (err != cudaSuccess) return err;
+      factor_solve_kernel<128><<<grid, 128, bytes, s>>>(A, b, x, n, nrhs);
+    } else {
+      cudaError_t err = reserve_smem(factor_solve_kernel<256>, bytes);
+      if (err != cudaSuccess) return err;
+      factor_solve_kernel<256><<<grid, 256, bytes, s>>>(A, b, x, n, nrhs);
+    }
+    return cudaGetLastError();
   }
   if (work == nullptr) return cudaErrorInvalidValue;
   const PanelPlan plan =
       panel_plan(factor_solve_panel_kernel, n, nrhs, limit);
   if (plan.b == 0) return cudaErrorInvalidValue;
-  factor_solve_panel_kernel<<<static_cast<unsigned int>(lanes),
-                              kPanelThreads, plan.bytes, s>>>(
+  factor_solve_panel_kernel<<<grid, kPanelThreads, plan.bytes, s>>>(
       A, b, x, work, n, nrhs, plan.b, plan.c, plan.perm_off);
   return cudaGetLastError();
 }

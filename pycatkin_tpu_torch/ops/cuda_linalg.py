@@ -22,15 +22,21 @@ in plain PyTorch) and a CUDA tensor to the kernel. A CUDA tensor is
 never served by the plain version: a kernel that cannot launch raises.
 Each launch adds one to :data:`LAUNCHES`.
 
-The kernels serve every n. ``lu_factor`` and ``factor_solve`` pick a
-tier by n (``csrc/linalg.cu``): a warp (n = 32) or half-warp (n = 16)
-per lane with rows in registers; at every other n one block per lane
-with the matrix in shared memory while it fits the card's opt-in limit
-(n <= 169 at k = 1 on an H100), and beyond that the panel tier: one
-block per lane factors the matrix in device memory (in ``LU`` itself,
-or in a workspace this module allocates for ``factor_solve``) a panel
-of columns at a time, with each entry's updates in the plain version's
-order. Off the warp tier the k right-hand sides stay in shared memory:
+The kernels serve every n (``csrc/linalg.cu``). At n = 16 and 32 all
+three take the warp tier: a half-warp or warp per lane with rows in
+registers, the substitutions by shuffles. Off it, ``lu_factor`` and
+``factor_solve`` take the resident tier while two lanes fit an SM's
+shared memory (n <= 119 at k = 1 on an H100): one block per lane factors
+the matrix in shared memory 32 columns at a time, the trailing updates
+in register tiles; beyond that the panel tier, faster there on an H100,
+factors it the same way in device memory (in ``LU`` itself, or in a
+workspace this module allocates for ``factor_solve``). ``lu_solve`` off
+the warp tier is a tiled substitution: each warp owns 32-row tile rows,
+the diagonal tiles are solved by shuffles, one block barrier per tile
+column. Every tier keeps each entry's updates in the plain version's
+order, so LU and perm are the plain version's bit for bit and
+``lu_solve(*lu_factor(A), b)`` is ``factor_solve(A, b)`` bit for bit.
+Off the warp tier the k right-hand sides stay in shared memory:
 ``n * k * 8`` bytes (plus ``4 n`` for ``factor_solve``) must fit that
 limit (k <= 56 at n = 512 on an H100); a larger k is refused, and the
 wrapper raises.

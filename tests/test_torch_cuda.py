@@ -34,7 +34,7 @@ def _systems(lanes, n, k, device, seed=0):
     return t(A), t(b)
 
 
-@pytest.mark.parametrize("n", [1, 16, 21, 64, 128])
+@pytest.mark.parametrize("n", [1, 16, 21, 64, 112, 128])
 @pytest.mark.parametrize("k", [None, 4], ids=["vec", "mat4"])
 def test_kernels_match_plain_versions_on_the_card(device, n, k):
     A, b = _systems(65, n, k, device)
@@ -57,14 +57,17 @@ def _hold_to_contract(A, b, LU, perm, x, xf, good):
     scale = float(xr[good].abs().max())
     assert float((x[good] - xr[good]).abs().max()) <= 1e-12 * scale
     assert float((xf[good] - xr[good]).abs().max()) <= 1e-12 * scale
+    # Both solves take each entry's updates in the same order.
+    assert torch.equal(x[good], xf[good])
 
 
 @pytest.mark.parametrize("n", [165, 170, 200, 256, 512])
 def test_kernels_serve_large_n_on_the_card(device, n):
-    """Above n = 128: n = 165 stays in shared memory; from n = 170 the
-    panel tier factors the matrix in device memory (factor_solve through
-    its workspace), 200 with a last panel of 8 columns; perm and LU bit
-    for bit the plain version's."""
+    """Above n = 128: the panel tier factors the matrix in device memory
+    (factor_solve through its workspace): at n = 165, whose lane fits
+    shared memory but alone on an SM, and from n = 170, where it no
+    longer fits, 200 with a last panel of 8 columns; perm and LU bit for
+    bit the plain version's."""
     A, b = _systems(5, n, None, device)
     cl.reset_launches()
     LU, perm = cl.lu_factor(A)

@@ -11,11 +11,12 @@ go through per-warp slot arrays; a thread that returns drops out of its
 barriers, and a block in which every thread waits aborts. Launches run
 the blocks one after another. That exercises the kernels' indexing,
 pivot search and barrier placement without a card -- blocks of several
-warps, half-warp lanes, a partial last block, the shared-memory block
-tier and the panel tier (at small n, under a lowered opt-in limit) --
-and the results are held against the plain PyTorch versions with the
-same contract as on the card (perm equal, LU bit for bit, x within 1e-12
-relative, a singular lane non-finite and its neighbours untouched).
+warps, half-warp lanes, a partial last block, the resident tier, the
+tiled lu_solve and the panel tier (at small n, under a lowered opt-in
+limit or SM count) -- and the results are held against the plain
+PyTorch versions with the same contract as on the card (perm equal, LU
+bit for bit, x within 1e-12 relative, lu_solve after lu_factor equal to
+factor_solve, a singular lane non-finite and its neighbours untouched).
 Skips when no host C++ compiler is installed."""
 
 import ctypes
@@ -56,7 +57,10 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorInvalidDevice = 101 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                      cudaDevAttrMultiProcessorCount,
+                      cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                      cudaDevAttrReservedSharedMemoryPerBlock };
 struct dim3v { unsigned x = 0, y = 0, z = 0; };
 struct double2 { double x, y; };
 inline double2 make_double2(double x, double y) { return {x, y}; }
@@ -140,6 +144,9 @@ inline double g_smem[232448 / 8];
 // so that the tiers switch at smaller n).
 inline int g_optin = static_cast<int>(sizeof(g_smem));
 extern "C" void emu_set_optin(int bytes) { g_optin = bytes; }
+// The SM count the kernels read (the H100's unless a test lowers it).
+inline int g_sms = 132;
+extern "C" void emu_set_sms(int sms) { g_sms = sms; }
 inline Warp& my_warp() { return *g_warps[threadIdx.x / 32]; }
 inline Barrier& group_barrier(unsigned mask) {
   Warp& w = my_warp();
@@ -246,8 +253,15 @@ template <class K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   return 0;
 }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = g_optin;
+// Per SM, the block opt-in limit plus the 1 KB each block reserves.
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  switch (a) {
+    case cudaDevAttrMaxSharedMemoryPerBlockOptin: *v = g_optin; break;
+    case cudaDevAttrMultiProcessorCount: *v = g_sms; break;
+    case cudaDevAttrMaxSharedMemoryPerMultiprocessor: *v = g_optin + 1024;
+      break;
+    case cudaDevAttrReservedSharedMemoryPerBlock: *v = 1024; break;
+  }
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -392,8 +406,16 @@ def _hold_to_contract(At, bt, out, good, bad=()):
 
 
 @pytest.mark.parametrize("n,k", [(1, None), (5, None), (5, 3), (21, None),
-                                 (21, 3), (33, None)])
+                                 (21, 3), (33, None), (9, 4), (33, 4),
+                                 (70, 4), (100, 2), (119, 2)])
 def test_kernel_source_matches_plain_versions(emulated, n, k):
+    """Off the warp tier: the resident factorization (one panel at n <= 32,
+    full and partial last panels above) and the tiled lu_solve (one tile
+    row, and two and three of them with partial last tiles). At n = 119
+    lu_factor takes the resident tier's last n (two lanes an SM, 256
+    threads) while factor_solve, whose two right-hand sides leave room
+    for one lane, takes the panel tier: the tiers still agree bit for
+    bit."""
     rng = np.random.default_rng(n)
     L = 3
     A = rng.standard_normal((L, n, n)) + 2.0 * n * np.eye(n)
@@ -403,6 +425,8 @@ def test_kernel_source_matches_plain_versions(emulated, n, k):
     At = torch.tensor(A)
     bt = torch.tensor(rng.standard_normal((L, n) if k is None
                                           else (L, n, k)))
+    if n == 119:
+        assert emulated.pk_factor_solve_workspace(n, k) == n * n
     out = _run_kernels(emulated, At, bt)
     if n > 1:
         _hold_to_contract(At, bt, out, slice(0, 2), bad=(2,))
@@ -447,18 +471,22 @@ def test_warp_tier_isolates_lanes_of_a_block(emulated, n, k):
     assert not bool(torch.isfinite(out[0][5]).all())
 
 
-@pytest.mark.parametrize("n", [64, 170], ids=["shared", "device"])
+@pytest.mark.parametrize("n", [64, 170, 100, 119, 120],
+                         ids=["shared", "device", "shared-100", "shared-119",
+                              "device-120"])
 def test_block_tier_pivots_on_updated_columns(emulated, n):
-    """The block tier on Gaussian matrices without a dominant diagonal,
+    """The block tiers on Gaussian matrices without a dominant diagonal,
     so every pivot search reads columns the previous step updated: at
-    n = 64 in shared memory, and at n = 170, where one lane's matrix
-    (231 KB with the permutation) no longer fits the H100's 227 KB of
-    shared memory, so the panel tier takes it: lu_factor works in LU and
-    factor_solve in its workspace. Lane 1 is singular."""
+    n = 64, 100 and 119 in shared memory (the resident tier, with six and
+    two lanes an H100 SM), and at n = 120 and 170, where the panel tier
+    takes it: lu_factor works in LU and factor_solve in its workspace.
+    The resident tier serves n while two lanes fit an SM (n <= 119 at
+    k = 1). Lane 1 is singular."""
     L = 2
     lib = emulated
-    assert lib.pk_factor_solve_workspace(169, 1) == 0
-    assert lib.pk_factor_solve_workspace(n, 1) == (n * n if n > 169 else 0)
+    assert lib.pk_factor_solve_workspace(119, 1) == 0
+    assert lib.pk_factor_solve_workspace(120, 1) == 120 * 120
+    assert lib.pk_factor_solve_workspace(n, 1) == (n * n if n > 119 else 0)
     rng = np.random.default_rng(n)
     A = rng.standard_normal((L, n, n))
     A[1, :, n // 2] = 0.0
@@ -532,6 +560,43 @@ def test_panel_tier_matches_plain_versions(emulated, optin, n, k, limit,
     assert not bool(torch.isfinite(out[0][6]).all())
     # The low-word tie: the larger entry, further down, is the pivot.
     assert int(out[1][3, 0]) == n - 2
+
+
+# (n, k, opt-in limit in bytes, SMs, what the tiled lu_solve then runs):
+# the limit leaves room beside y for fewer tiles than the lane has tile
+# rows, or for none; one SM leaves the three lanes no single wave.
+SOLVE_CASES = [
+    (70, None, 8 * 70 + 2 * 8448, 132, "two warps for three tile rows"),
+    (70, 4, 8 * 280 + 8448 - 8, 132, "no tile beside y: rows read from "
+     "device memory"),
+    (100, 2, H100_OPTIN, 1, "one warp for four tile rows"),
+]
+
+
+@pytest.mark.parametrize("n,k,limit,sms,what", SOLVE_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[3]}"
+                              for c in SOLVE_CASES])
+def test_tiled_solve_at_a_lowered_limit(emulated, optin, n, k, limit, sms,
+                                        what):
+    """The tiled lu_solve where shared memory holds fewer warps' tiles
+    than the lane has tile rows (a warp then owns rows 0 and 2), or none
+    (each thread reads its row of a tile from device memory), and where
+    the lanes outnumber what one wave holds (one warp a lane). Three
+    lanes, the last singular."""
+    optin(limit)
+    emulated.emu_set_sms(sms)
+    try:
+        rng = np.random.default_rng(2000 + n)
+        A = rng.standard_normal((3, n, n)) + 2.0 * n * np.eye(n)
+        A[1] = A[1][rng.permutation(n)]
+        A[2, :, n // 2] = 0.0
+        At = torch.tensor(A)
+        bt = torch.tensor(rng.standard_normal((3, n) if k is None
+                                              else (3, n, k)))
+        _hold_to_contract(At, bt, _run_kernels(emulated, At, bt), [0, 1],
+                          bad=(2,))
+    finally:
+        emulated.emu_set_sms(132)
 
 
 def test_kernel_entry_points_reject_bad_sizes(emulated):
