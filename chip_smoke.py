@@ -21,7 +21,8 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    the singular lane non-finite. At n = 16 and 32 the check takes 65,537
    lanes, which leaves the warp tier a partial last block. Then the
    plain-PyTorch Gauss-Jordan route (n = 8, 21) on the card against the
-   CPU;
+   CPU, and the threefry keys and uniform draws of the rescue ladder's
+   restarts (``ops/prng.py``) bit for bit against the CPU's;
 3. flagship path: ``fused_sweep`` on the synthetic 24-species /
    32-reaction mechanism, 65,536 lanes with T from 400 to 800 K. Its
    n = 21 direction solves take Gauss-Jordan, as in the JAX package, so
@@ -61,20 +62,42 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    is why the atol is not phase 5's 1e-12;
 8. where the time goes: the ABI flagship and both large runs re-run
    warm, then once more under torch.profiler (device-busy share and the
-   top device kernels); the flagship re-run warm; the Gauss-Jordan
-   inverse timed at the flagship's shape;
+   top device kernels); the flagship re-run warm; one Gauss-Jordan solve
+   (``gauss_solve``, the flagship's direction solve) timed at the
+   flagship's shape;
 9. each kernel timed at the shapes each path gives it, beside its plain
    version, the matching ``torch.linalg`` call, its bound and the FP64
    vector floor (see :func:`vector_floor_ms`), and the wrapper's host
    time per launch (checks, output allocation, the C entry's choice of
    tier and plan, the launch); then, on no path, the three kernels at
-   n = 512 and ``factor_solve`` at n = 165, 256.
+   n = 512 and ``factor_solve`` at n = 165, 256;
+10. rescue path: ``sweep_steady_state(..., opts=SolverOptions(max_steps=6,
+   max_attempts=3), abi=True, check_stability=True)`` on the ABI
+   flagship, 65,536 lanes, T 400-800 K: the 6-step cap (the JAX
+   package's failure corpus) fails lanes in the first pass, so they go
+   through the rescue ladder; it prints the lanes entering and leaving
+   each rung, the strategy codes, attempts, iterations, walls first and
+   warm, and must launch all three kernels. Then the LM rung alone
+   (``_rescue(..., "lm")``) on the first pass's failed lanes at full
+   width, and its program on the first 256 of them on the card and on
+   the CPU (counts and verdict tests equal). The first 256 lanes (a
+   prefix, so that each failed lane's rescue key is the same) run
+   through the whole ladder on the CPU: success, quarantined, stable,
+   attempts and strategy codes equal, states, TOF and activity within
+   rtol 1e-5 / atol 1e-12 (else within the one-ulp gate of phase 3);
+   256 rescued lanes must pass the convergence test on the CPU;
+11. the flagship entry as written (``__graft_entry__.py``): per lane
+   ``engine.steady_state`` with the default ``SolverOptions()`` (five
+   attempts) and key i of ``split(prng_key(0), L)``, then ``tof`` and
+   ``activity_from_tof(|tof|)``, on the unpadded flagship, 65,536 lanes,
+   T 450-650 K; walls, the attempt histogram, and 256 lanes held to the
+   CPU through phase 3's one-ulp gate.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
 line with one row per kernel per path that launches it (``path``:
-``certificate``, ``abi_flagship``, ``abi_certificate``, ``large`` or
-``large_abi``), the
+``certificate``, ``abi_flagship``, ``abi_certificate``, ``rescue_abi``,
+``large`` or ``large_abi``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA card it exits 1 and
 prints no result.
@@ -106,6 +129,8 @@ ABI_CERT_LANES = 65536
 LARGE_LANES = 2048       # synthetic (200, 200): ~20 GiB peak at D = 256
 CHECK_LANES = 4096       # well-conditioned lanes per kernel check size
 LARGE_CHECK_LANES = 128  # well-conditioned lanes per check size above 128
+RESCUE_OPTS = dict(max_steps=6, max_attempts=3)   # phase 10's options
+ENTRY_LANES = 65536      # phase 11, the flagship entry
 SUBSET = 256             # lanes of each path re-run on the CPU
 LARGE_SUBSET = 16        # the same for the large path
 REPS = 20                # timed calls per kernel
@@ -353,6 +378,22 @@ def check_gauss(device) -> None:
             f"x {e_x:.2e} inverse {e_inv:.2e}, bit for bit {same}")
 
 
+def check_prng(device) -> None:
+    """Phase 2d: the threefry keys and uniform draws of the rescue
+    ladder's restarts on the card against the same calls on the CPU."""
+    import torch
+    from pycatkin_tpu_torch.ops import prng
+    keys = prng.split(prng.prng_key(0, device), FLAGSHIP_LANES)
+    draws = prng.uniform(prng.split(keys)[:, 1], (32,))
+    torch.cuda.synchronize()
+    keys_c = prng.split(prng.prng_key(0), FLAGSHIP_LANES)
+    assert torch.equal(keys.cpu(), keys_c), "prng: split differs"
+    assert torch.equal(draws.cpu(), prng.uniform(prng.split(keys_c)[:, 1],
+                                                 (32,))), "prng: uniform"
+    log(f"prng check: {FLAGSHIP_LANES} keys and 32 uniform draws each, bit "
+        f"for bit the CPU's")
+
+
 def counted(run):
     """``run()`` with the launch counters and the sync counter zeroed
     just before and read just after; returns (output, counts, syncs,
@@ -367,7 +408,7 @@ def counted(run):
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, dict(cl.LAUNCHES), newton.SYNCS["ptc_active"], wall
+    return out, dict(cl.LAUNCHES), sum(newton.SYNCS.values()), wall
 
 
 def fused(spec, conds, mask, device):
@@ -595,6 +636,249 @@ def report_abi(label, low, L, out, counts, syncs, wall, peak, note=""):
         f"memory {peak:.1f} MiB | launches {counts}")
 
 
+def rescue_path(spec, conds, mask, device) -> dict:
+    """Phase 10: the flagship lowered into its ABI bucket, through
+    ``sweep_steady_state(..., opts=RESCUE_OPTS, abi=True,
+    check_stability=True)``, twice (first and warm), with the lanes
+    entering and leaving each rung of the ladder; then the LM rung alone
+    on the fast pass's failed lanes; then the first :data:`SUBSET` lanes
+    (a prefix, so that each failed lane's position in the failed list,
+    hence its key, is the same) through the whole ladder on the CPU.
+    Returns the launch counts of the first run."""
+    import numpy as np
+    import torch
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.frontend import abi
+    from pycatkin_tpu_torch.ops import prng
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import newton
+    L = len(conds.T)
+    opts = newton.SolverOptions(**RESCUE_OPTS)
+    rescue = batch._rescue
+    rungs = []
+
+    def logged(ds, c, res, o, strategy, **kw):
+        n_in = int((~res.success).sum())
+        out, n_left = rescue(ds, c, res, o, strategy, **kw)
+        rungs.append(f"{newton.STRATEGY_NAMES[kw.get('code', 0)]} "
+                     f"{n_in} -> {n_left}")
+        return out, n_left
+
+    run = lambda: batch.sweep_steady_state(
+        spec, conds, mask, opts=opts, check_stability=True, abi=True,
+        device=device)
+    batch._rescue = logged
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out, counts, syncs, wall = counted(run)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        ladder = list(rungs)
+        _, _, _, warm = counted(run)
+    finally:
+        batch._rescue = rescue
+    codes = out["lane_telemetry"][:, 3].cpu()
+    hist = {newton.STRATEGY_NAMES[int(c)]: int((codes == c).sum())
+            for c in torch.unique(codes)}
+    ok = out["success"]
+    att, it = out["attempts"].double(), out["iterations"].double()
+    log(f"phase 10 rescue path: ABI flagship, {L} lanes T 400-800 K, "
+        f"SolverOptions({RESCUE_OPTS}) | rungs (lanes in -> left): "
+        f"{'; '.join(ladder)} | strategy codes {hist} | converged and "
+        f"stable {int(ok.sum())} quarantined "
+        f"{int(out['quarantined'].sum())} | attempts median "
+        f"{float(att.median()):.0f} max {int(att.max())} | iterations "
+        f"median {float(it.median()):.0f} max {int(it.max())} | wall first "
+        f"{wall:.3f} s warm {warm:.3f} s, {L / warm:.1f} lanes/s, peak "
+        f"memory {peak:.1f} MiB | host syncs {syncs} | launches {counts}")
+    assert ladder, "the fast pass left no lane to rescue"
+    assert all(counts[k] > 0 for k in ("lu_factor", "lu_solve",
+                                       "factor_solve")), counts
+    assert out["y"].shape == (L, spec.n_species)
+    assert bool(torch.isfinite(out["y"][ok]).all())
+    assert bool(torch.isfinite(out["tof"][ok]).all())
+
+    # The LM rung on the card at full width, whatever polish left.
+    low = abi.lower_spec(spec)
+    ds = engine.bind(low, device)
+    cp = engine.conditions_to(low.pad_conditions(conds), device)
+    fast = engine.steady_state(ds, cp, opts=batch.fast_pass_opts(opts))
+    n_failed = int((~fast.success).sum())
+    (lm, n_left), lcounts, lsyncs, lwall = counted(
+        lambda: rescue(ds, cp, fast, opts, "lm", n_failed=n_failed))
+    log(f"phase 10 LM rung alone: {n_failed} failed lanes in, {n_left} "
+        f"left | wall {lwall:.3f} s | host syncs {lsyncs} | launches "
+        f"{lcounts}")
+    assert n_failed > 0
+    assert lcounts["lu_factor"] > 0 and lcounts["lu_solve"] > 0, lcounts
+    # Its program on the first lanes, on the card and on the CPU: every
+    # attempt fails, attempt 2 from a threefry draw on each device, so the
+    # counts are the caps' and the best unconverged states carry the
+    # check: within the envelope, or within twice the spread of the CPU's
+    # own runs with T up, T down and kscale up one ulp (LM's march, on
+    # squared condition numbers, moves them by more than the envelope).
+    P = SUBSET
+    pre = torch.arange(P, device=device)
+    keys = prng.split(prng.prng_key(1, device), P)
+    x0 = fast.x[pre][:, ds.dyn]
+    got = engine.steady_state(ds, engine.lane_subset(cp, pre), x0=x0,
+                              key=keys, opts=opts, strategy="lm")
+    dsc = engine.bind(low, "cpu")
+    sub = engine.lane_subset(type(cp)(*(f.cpu() for f in cp)), pre.cpu())
+    lm_cpu = lambda c: engine.steady_state(dsc, c, x0=x0.cpu(),
+                                           key=keys.cpu(), opts=opts,
+                                           strategy="lm")
+    want = lm_cpu(sub)
+    for name in ("success", "attempts", "iterations", "rate_ok", "pos_ok",
+                 "sums_ok"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            f"phase 10 LM prefix parity: {name} differs"
+    dx, frac = envelope_gap(got.x.cpu(), want.x)
+    ulp = 1.0 + 2.0 ** -52
+    spread = max(float((lm_cpu(c).x - want.x).abs().max()) for c in (
+        sub._replace(T=sub.T * ulp), sub._replace(T=sub.T / ulp),
+        sub._replace(kscale=sub.kscale * ulp)))
+    assert frac <= 1.0 or dx <= 2.0 * spread, \
+        f"phase 10 LM prefix parity: best states differ by {dx}, " \
+        f"{frac:.3g} of the envelope, twice the one-ulp spread is " \
+        f"{2.0 * spread}"
+    # Where no attempt beats a seed's score the best state is the seed
+    # itself, so the LM step is held apart: one attempt from the same
+    # seeds, its own iterate by the same rule.
+    def lm_attempt(dsx, c, x):
+        kf, kr, _ = engine.rate_constants(dsx, c)
+        cl = engine.closures(dsx, c, kf, kr)
+        return newton._lm_attempt(cl.fscale, cl.jac, x, dsx.groups_dyn, opts)
+    xg, _, kg, _, _ = lm_attempt(ds, engine.lane_subset(cp, pre), x0)
+    xc, _, kc, _, _ = lm_attempt(dsc, sub, x0.cpu())
+    assert torch.equal(kg.cpu(), kc), "phase 10 LM attempt: steps differ"
+    moved = int((xc != x0.cpu()).any(dim=-1).sum())
+    ax, afrac = envelope_gap(xg.cpu(), xc)
+    aspread = max(float((lm_attempt(dsc, c, x0.cpu())[0] - xc).abs().max())
+                  for c in (sub._replace(T=sub.T * ulp),
+                            sub._replace(T=sub.T / ulp),
+                            sub._replace(kscale=sub.kscale * ulp)))
+    assert afrac <= 1.0 or ax <= 2.0 * aspread, \
+        f"phase 10 LM attempt: iterates differ by {ax}, {afrac:.3g} of " \
+        f"the envelope, twice the one-ulp spread is {2.0 * aspread}"
+    log(f"phase 10 LM prefix parity: the LM program on the first {P} "
+        f"failed lanes on the CPU: success, attempts "
+        f"{sorted(set(want.attempts.tolist()))}, iterations and the verdict "
+        f"tests equal; best unconverged states max gap {dx:.3e} ({frac:.3g} "
+        f"of the envelope) vs the CPU's one-ulp spread {spread:.3e}; one "
+        f"LM attempt from the same seeds: steps equal, {moved} of {P} "
+        f"iterates moved, max gap {ax:.3e} ({afrac:.3g} of the envelope) "
+        f"vs the CPU's one-ulp spread {aspread:.3e}")
+    del fast, lm, cp, got
+
+    # The prefix through the whole ladder on the CPU.
+    P = SUBSET
+    idx = np.arange(P)
+    sub = type(conds)(*(np.asarray(f)[:P] for f in conds))
+    rerun = lambda c: batch.sweep_steady_state(
+        spec, c, mask, opts=opts, check_stability=True, abi=True,
+        device="cpu")
+    ref = rerun(sub)
+    for name in ("success", "quarantined", "stable", "attempts"):
+        assert torch.equal(out[name][:P].cpu(), ref[name]), \
+            f"phase 10 CPU prefix parity: {name} differs"
+    assert torch.equal(codes[:P], ref["lane_telemetry"][:, 3]), \
+        "phase 10 CPU prefix parity: strategy codes differ"
+    n_it = int((out["iterations"][:P].cpu() != ref["iterations"]).sum())
+    fields = {"x": lambda o: o["y"], "tof": lambda o: o["tof"],
+              "activity": lambda o: o["activity"]}
+    gaps = {k: envelope_gap(g(out)[:P].cpu(), g(ref)) for k, g in
+            fields.items()}
+    held = "; ".join(f"{k} max gap {d:.3e} ({f:.3g} of the envelope)"
+                     for k, (d, f) in gaps.items())
+    if all(f <= 1.0 for _, f in gaps.values()):
+        gate = "held to the envelope"
+    else:
+        # Where the ladder polishes a lane from a far start, the
+        # reference moves its own converged states by more than the
+        # envelope under a one-ulp change of its inputs (PERF.md §5).
+        gate = one_ulp_gate("phase 10", spec, sub, rerun, ref, out, idx,
+                            fields)
+    log(f"phase 10 CPU prefix parity: the first {P} lanes through the "
+        f"ladder on the CPU: success, quarantined, stable, attempts and "
+        f"strategy codes equal; iteration counts differ on {n_it} lanes; "
+        f"{held}; {gate}")
+
+    # Converged rescued lanes pass the convergence test on the CPU.
+    rescued = np.flatnonzero(((codes != 0) & ok.cpu()).numpy())
+    if rescued.size:
+        pick = rescued[np.linspace(0, rescued.size - 1,
+                                   min(SUBSET, rescued.size)).round()
+                       .astype(np.int64)]
+        subr = type(conds)(*(np.asarray(f)[pick] for f in conds))
+        rn = float(cpu_normalized_residual(
+            spec, subr, out["y"][torch.as_tensor(pick, device=device)]
+            .cpu()).max())
+        log(f"phase 10 rescued lanes: {rescued.size} converged, "
+            f"{pick.size} sampled, normalized residual on the CPU at most "
+            f"{rn:.3g}")
+        assert rn <= 1.0 + RESIDUAL_SLACK, rn
+    return counts
+
+
+def entry_path(spec, base, mask, device) -> None:
+    """Phase 11: the flagship entry of ``__graft_entry__.py`` as written --
+    per lane ``engine.steady_state`` with the default ``SolverOptions()``
+    (five attempts) and key ``i`` of ``split(prng_key(0), L)``, then
+    ``tof`` and ``activity_from_tof(|tof|)`` -- on the unpadded flagship,
+    T 450-650 K; 256 lanes re-run on the CPU through the one-ulp gate of
+    phase 3."""
+    import numpy as np
+    import torch
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.ops import prng
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import newton
+    L = ENTRY_LANES
+    conds = batch.broadcast_conditions(base, L)._replace(
+        T=np.linspace(450.0, 650.0, L))
+    keys = prng.split(prng.prng_key(0, device), L)
+
+    def entry(c, k, dev):
+        ds = engine.bind(spec, dev)
+        ct = engine.conditions_to(c, dev)
+        res = engine.steady_state(ds, ct, key=k, opts=newton.SolverOptions())
+        t = engine.tof(ds, ct, res.x, torch.as_tensor(
+            mask, dtype=torch.float64, device=dev))
+        return res, t, engine.activity_from_tof(torch.abs(t), ct.T)
+
+    out, counts, syncs, wall = counted(lambda: entry(conds, keys, device))
+    _, _, _, warm = counted(lambda: entry(conds, keys, device))
+    res = out[0]
+    att = res.attempts.cpu()
+    hist = {int(a): int((att == a).sum()) for a in torch.unique(att)}
+    log(f"phase 11 flagship entry: engine.steady_state(SolverOptions()) "
+        f"with split(prng_key(0), L) keys, synthetic(24, 32) unpadded, "
+        f"{L} lanes T 450-650 K | converged {int(res.success.sum())} | "
+        f"attempts {hist} | median iterations "
+        f"{float(res.iterations.double().median()):.0f} max "
+        f"{int(res.iterations.max())} | wall first {wall:.3f} s warm "
+        f"{warm:.3f} s, {L / warm:.1f} lanes/s | host syncs {syncs} | "
+        f"launches {counts}")
+    assert set(counts.values()) == {0}, counts
+    ok = res.success
+    assert bool(torch.isfinite(res.x[ok]).all())
+    assert bool(torch.isfinite(out[2][ok]).all())
+    idx, sub = cpu_subset(conds)
+    kc = keys[torch.as_tensor(idx, device=device)].cpu()
+    rerun = lambda c: entry(c, kc, "cpu")
+    ref = rerun(sub)
+    for name in ("success", "attempts"):
+        assert torch.equal(getattr(res, name)[idx].cpu(),
+                           getattr(ref[0], name)), \
+            f"phase 11 CPU subset parity: {name} differs"
+    fields = {"x": lambda o: o[0].x, "tof": lambda o: o[1],
+              "activity": lambda o: o[2]}
+    gate = one_ulp_gate("phase 11", spec, sub, rerun, ref, out, idx, fields)
+    log(f"phase 11 CPU parity: {SUBSET} lanes re-run on the CPU, and with "
+        f"T up, T down, kscale up one ulp: success and attempts equal; "
+        f"{gate}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -621,6 +905,7 @@ def main() -> int:
     # -- phase 2: kernels against their plain versions -----------------
     check_kernels(cl, device)
     check_gauss(device)
+    check_prng(device)
     log("phase 2 kernel check: all sizes passed")
 
     # -- phase 3: the flagship path (Gauss-Jordan, no kernel) ----------
@@ -745,11 +1030,17 @@ def main() -> int:
     _, _, _, fwall = counted(fused(spec, conds, mask, device))
     log(f"phase 8 warm flagship: wall {fwall:.3f} s, {L / fwall:.1f} "
         f"lanes/s")
-    A21, _ = test_matrices(L - 1, n_dyn, seed=3, device=device)
-    inv_ms = cuda_ms(lambda: linalg.inv(A21), 3, warmup=1)
-    log(f"phase 8 Gauss-Jordan inverse (plain PyTorch) n={n_dyn} x {L} "
-        f"lanes: {inv_ms:.3f} ms")
-    del A21
+    A21, b21 = test_matrices(L - 1, n_dyn, seed=3, device=device)
+    gj_ms = cuda_ms(lambda: linalg.gauss_solve(A21, b21), 3, warmup=1)
+    log(f"phase 8 Gauss-Jordan solve (plain PyTorch gauss_solve, one "
+        f"right-hand side) n={n_dyn} x {L} lanes: {gj_ms:.3f} ms")
+    del A21, b21
+
+    # -- phase 10: the rescue path -------------------------------------
+    rcounts = rescue_path(spec, conds, mask, device)
+
+    # -- phase 11: the flagship entry as written ---------------------
+    entry_path(spec, base, mask, device)
 
     # -- phase 9, kernels line: one row per kernel per path ---------------
     m = deflation_basis_for_spec(cspec).shape[1]
@@ -760,6 +1051,10 @@ def main() -> int:
     timed += [("abi_flagship", acounts, r)
               for r in time_lu(cl, low.static.n_dynamic, L, device) + [fs16]]
     timed += [("abi_certificate", scounts, fs16)]
+    # The rescue path's largest shapes: the fast pass and, where every
+    # lane fails it, the polish rung run n = 32 on all L lanes.
+    timed += [("rescue_abi", rcounts, r) for _, c, r in timed
+              if c is acounts]
     timed += [("large", gcounts, r) for r in time_lu(cl, g_dyn, Lg, device)]
     timed += [("large_abi", hcounts, r)
               for r in time_lu(cl, glow.static.n_dynamic, Lg, device)]

@@ -5,7 +5,7 @@ Composition of the kernel layers for a batch of conditions:
     free_energies      <- ops.thermo + scaling relations
     reaction_energies  <- stoichiometric sums
     rate_constants     <- ops.rates dispatch
-    steady_state       <- solvers.newton (single-attempt PTC)
+    steady_state       <- solvers.newton (PTC or LM, random restarts)
     steady_jacobian    <- torch.func.jacfwd of the dynamic residual
     tof / activity     <- net rates of the selected steps
 
@@ -264,24 +264,37 @@ def closures(ds: DeviceSpec, cond: Conditions, kf, kr) -> Closures:
         y_base=y_base)
 
 
-def steady_state(ds: DeviceSpec, cond: Conditions, x0=None, key=None,
-                 opts: SolverOptions = SolverOptions()
-                 ) -> SteadyStateResults:
-    """Single-attempt steady-state solve of every lane over the dynamic
-    indices (gas clamped for the infinite-dilution reactor).
+def lane_subset(cond: Conditions, idx) -> Conditions:
+    """The lanes ``idx`` (a long tensor or array) of ``cond``."""
+    idx = torch.as_tensor(idx, device=cond.T.device)
+    return Conditions(*(f[idx] for f in cond))
 
-    ``key`` is unused: the single-attempt fast pass draws no random
-    numbers (random restarts belong to the multi-attempt rescue ladder,
-    not ported yet). ``x0`` defaults to the dynamic entries of
-    ``cond.y0``."""
-    del key
+
+def steady_state(ds: DeviceSpec, cond: Conditions, x0=None, key=None,
+                 opts: SolverOptions = SolverOptions(),
+                 strategy: str = "ptc") -> SteadyStateResults:
+    """Steady-state solve of every lane over the dynamic indices (gas
+    clamped for the infinite-dilution reactor) by
+    :func:`newton.solve_steady`.
+
+    ``x0 [L, n_dyn]`` defaults to the dynamic entries of ``cond.y0``.
+    ``key [L, 2]`` holds each lane's PRNG key for the random restarts
+    of a multi-attempt solve (None: ``prng_key(0)`` for every lane);
+    ``strategy`` is ``"ptc"`` or ``"lm"``. Each attempt after the first
+    runs only the lanes still failing."""
     kf, kr, _ = rate_constants(ds, cond)
     cl = closures(ds, cond, kf, kr)
     if x0 is None:
         x0 = cl.y_base[..., ds.dyn]
+
+    def lanes(idx):
+        sub = closures(ds, lane_subset(cond, idx), kf[idx], kr[idx])
+        return sub.fscale, sub.jac
+
     (x, success, res, iters, attempts, rate_ok, pos_ok, sums_ok,
      dt_exit, chords) = newton.solve_steady(
-        cl.fscale, cl.jac, x0.contiguous(), ds.groups_dyn, opts)
+        cl.fscale, cl.jac, x0.contiguous(), ds.groups_dyn, opts, key=key,
+        strategy=strategy, lanes=lanes)
     return SteadyStateResults(
         x=compose_state(ds, cl.y_base, x), success=success, residual=res,
         iterations=iters, attempts=attempts, rate_ok=rate_ok,
@@ -294,14 +307,24 @@ def steady_jacobian(ds: DeviceSpec, cond: Conditions, x_dyn):
     return closures(ds, cond, kf, kr).jac(x_dyn)
 
 
+def check_stability(ds: DeviceSpec, cond: Conditions, y_full,
+                    pos_tol: float = 1e-2) -> np.ndarray:
+    """Jacobian-eigenvalue stability verdict of every lane at its full
+    state ``y_full [L, n_s]``: each eigenvalue's real part at most the
+    scale-aware tolerance (:func:`newton.stability_tolerance`). The
+    Jacobians are formed on the device, the eigenvalues on the host
+    (numpy); returns a numpy bool array ``[L]``."""
+    J = steady_jacobian(ds, cond, torch.as_tensor(y_full)[..., ds.dyn])
+    return newton.jacobian_eigenvalues_stable(J.cpu().numpy(), pos_tol)
+
+
 def tof(ds: DeviceSpec, cond: Conditions, y, tof_mask):
     """Turnover frequency per lane: the summed net rates of the steps
     selected by ``tof_mask`` ``[n_r]`` at the full state ``y``."""
     kf, kr, _ = rate_constants(ds, cond)
-    fwd, rev = network.reaction_rates(y, kf, kr, reac_idx=ds.reac_idx,
-                                      prod_idx=ds.prod_idx,
-                                      is_gas=ds.is_gas)
-    return torch.sum(tof_mask * (fwd - rev), dim=-1)
+    net = network.net_rates(y, kf, kr, reac_idx=ds.reac_idx,
+                            prod_idx=ds.prod_idx, is_gas=ds.is_gas)[2]
+    return torch.sum(tof_mask * net, dim=-1)
 
 
 def activity_from_tof(tof_value, T):

@@ -9,8 +9,9 @@ the tier a TPU resolves to; the path names are the JAX seam's:
   :mod:`cuda_linalg`, ``lu_factor`` + ``lu_solve`` to factor once and
   solve many, ``factor_solve`` for a one-shot solve;
 - ``"gauss"``: any other n <= :data:`UNROLL_MAX` -> row-equilibrated
-  Gauss-Jordan in plain PyTorch (:func:`gauss_solve`; factor-once reuse
-  takes the explicit inverse :func:`inv`, then matvecs);
+  Gauss-Jordan in plain PyTorch, one :func:`gauss_solve` per right-hand
+  side (factor-once reuse too, as the JAX package's direction solve
+  takes it: an explicit inverse and matvecs round differently);
 - ``"lu"``: anything larger -> the same :mod:`cuda_linalg` LU (the
   JAX package's sequential XLA LU does the same first-max
   partial-pivot arithmetic as its Pallas kernels).
@@ -54,13 +55,6 @@ def _make_lu_solve(M):
     return lambda r: cuda_linalg.lu_solve(LU, perm, r.contiguous())
 
 
-def _make_inv_solve(M):
-    """Explicit Gauss-Jordan inverse; each solve is then a matvec."""
-    Minv = inv(M)
-    return lambda r: (Minv @ r[..., None])[..., 0] if r.dim() == 2 \
-        else Minv @ r
-
-
 def _lu_solve_once(A, b):
     return cuda_linalg.factor_solve(A, b.contiguous())
 
@@ -71,13 +65,14 @@ def select_solver(n: int) -> SolverChoice:
     if n in KERNEL_BUCKETS:
         return SolverChoice("pallas", _make_lu_solve, _lu_solve_once)
     if n <= UNROLL_MAX:
-        return SolverChoice("gauss", _make_inv_solve, gauss_solve)
+        return SolverChoice("gauss", lambda M: lambda r: gauss_solve(M, r),
+                            gauss_solve)
     return SolverChoice("lu", _make_lu_solve, _lu_solve_once)
 
 
 def make_msolve(M):
-    """Factor ``M`` once, return a closure solving ``M x = r`` for each
-    right-hand side it is given."""
+    """A closure solving ``M x = r`` for each right-hand side it is
+    given (``M`` factored once on the LU paths)."""
     return select_solver(M.shape[-1]).make_solve(M)
 
 

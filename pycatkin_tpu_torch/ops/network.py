@@ -35,15 +35,21 @@ def _slot_product(vals):
     return out
 
 
-def reaction_rates(y, kf, kr, *, reac_idx, prod_idx, is_gas):
-    """Forward/reverse rates of every reaction, ``[..., n_r]`` each.
+def net_rates(y, kf, kr, *, reac_idx, prod_idx, is_gas):
+    """Forward, reverse and net rates of every reaction, ``[..., n_r]``
+    each. ``reac_idx``/``prod_idx``: [n_r, A] species indices padded with
+    n_s (a virtual species of constant activity 1).
 
-    ``reac_idx``/``prod_idx``: [n_r, A] species indices padded with n_s
-    (a virtual species of constant activity 1)."""
+    The net rate ``kf * prod - rev`` is rounded once (``addcmul``): XLA's
+    CPU backend fuses the JAX package's ``fwd - rev`` into one
+    multiply-add, and ``addcmul`` rounds once on the CPU too, so the net
+    rates there are bit for bit the reference's. A last-bit difference
+    in them grows along the steady solver's march to ~1e-5 in its final
+    residual."""
     y_ext = _y_ext(y, is_gas)
-    fwd = kf * _slot_product(y_ext[..., reac_idx])
+    pf = _slot_product(y_ext[..., reac_idx])
     rev = kr * _slot_product(y_ext[..., prod_idx])
-    return fwd, rev
+    return kf * pf, rev, torch.addcmul(-rev, kf, pf)
 
 
 def reactor_rhs_and_scale(y, kf, kr, *, reac_idx, prod_idx, is_gas,
@@ -58,9 +64,9 @@ def reactor_rhs_and_scale(y, kf, kr, *, reac_idx, prod_idx, is_gas,
     - CSTR: gas rows are scaled by sigma/bartoPa (``sigma_over_bar``,
       lane-shaped) and gain the flow term (inflow - y)/tau.
     """
-    fwd, rev = reaction_rates(y, kf, kr, reac_idx=reac_idx,
+    fwd, rev, net = net_rates(y, kf, kr, reac_idx=reac_idx,
                               prod_idx=prod_idx, is_gas=is_gas)
-    chem = (fwd - rev) @ stoich.T
+    chem = net @ stoich.T
     gross = (torch.abs(fwd) + torch.abs(rev)) @ torch.abs(stoich).T
     if reactor_type == REACTOR_ID:
         return chem * is_adsorbate, gross * is_adsorbate

@@ -1,6 +1,8 @@
-"""The fused steady-state sweep over a lane batch and the public one-call
-sweep (PyTorch port of ``_fused_sweep_program``, ``_abi_fused_body`` and
-``sweep_steady_state`` of ``pycatkin_tpu/parallel/batch.py``).
+"""The fused steady-state sweep over a lane batch, the public one-call
+sweep and the rescue ladder behind it (PyTorch port of
+``_fused_sweep_program``, ``_abi_fused_body``, ``sweep_steady_state``,
+``_finish_sweep`` and the entries that ride on them in
+``pycatkin_tpu/parallel/batch.py``).
 
 :func:`fused_sweep` runs the whole clean sweep of one mechanism over a
 batch of conditions: the single-attempt PTC solve of every lane, the
@@ -13,11 +15,14 @@ JAX package's ABI body does.
 
 :func:`sweep_steady_state` is the public entry: optionally lower into
 the ABI bucket, run the fused sweep, then decide from the bundle as
-the JAX package's ``_fused_decide`` does -- assemble a clean result, or
-settle the ambiguous lanes by a host eigensolve. Lanes that would need
-the rescue ladder (failed or quarantined lanes, or lanes the
-eigensolve demotes) raise ``NotImplementedError`` (ROADMAP Queue A
-item 7); no result is returned that differs from the JAX package's.
+the JAX package's ``_fused_decide`` does -- assemble a clean result,
+settle the ambiguous lanes by a host eigensolve, or hand the sweep to
+:func:`_finish_sweep`: the rescue ladder over the failed lanes
+(neighbor-seeded polish, the full PTC solve, LM), the quarantine
+re-check, the stability verdict and up to three rounds of unseeded
+re-solves of the lanes it demotes, then TOF and activity.
+:func:`batch_steady_state`, :func:`continuation_sweep` and
+:func:`stability_mask` are the JAX package's entries of the same names.
 """
 
 from __future__ import annotations
@@ -30,12 +35,15 @@ import torch
 from .. import engine
 from ..frontend import abi as _abi
 from ..frontend.spec import Conditions, ModelSpec
-from ..solvers.newton import (LYAPUNOV_MAX_DIM, SolverOptions,
+from ..ops import prng
+from ..solvers.newton import (LYAPUNOV_MAX_DIM, STRATEGY_CODES,
+                              SolverOptions, SteadyStateResults,
                               deflation_basis_for_spec,
                               effective_unit_roundoff, lane_finite_mask,
                               lyapunov_certified_stable,
                               packed_lane_telemetry,
                               packed_sweep_diagnostics,
+                              stability_tolerance,
                               stability_tolerance_from_scale)
 
 
@@ -215,29 +223,307 @@ def _stability_tier2(ds: engine.DeviceSpec, conds: Conditions, ys,
     verdicts merged into the host copy ``certified``, which is
     returned."""
     sel = torch.as_tensor(idx, device=ds.device)
-    sub = Conditions(*(f[sel] for f in conds))
-    J = engine.steady_jacobian(ds, sub, ys[sel][..., ds.dyn])
+    J = engine.steady_jacobian(ds, engine.lane_subset(conds, sel),
+                               ys[sel][..., ds.dyn])
     Js = J.cpu().numpy()
     eig = np.linalg.eigvals(Js)
-    scale = np.abs(Js).max(axis=(-2, -1))
-    tol = stability_tolerance_from_scale(scale, pos_tol,
-                                         float(np.finfo(Js.dtype).eps))
-    certified[idx] = np.all(eig.real <= tol[..., None], axis=-1)
+    certified[idx] = np.all(
+        eig.real <= stability_tolerance(Js, pos_tol)[..., None], axis=-1)
     return certified
 
 
-def _rescue_needed(why: str):
-    return NotImplementedError(
-        f"sweep_steady_state: {why}; those lanes need the rescue ladder "
-        "(multi-attempt solve, LM fallback, the legacy tail), which is "
-        "not ported yet (ROADMAP Queue A item 7)")
+def _stability_mask(ds: engine.DeviceSpec, conds: Conditions, ys,
+                    pos_tol: float, ok, precomputed=None):
+    """:func:`stability_mask` on a bound spec: the tier-0 screen (or the
+    ``precomputed`` ``(certified, ambiguous, n_ambiguous)`` of the same
+    screen on the same ``ys`` and ``ok``), then the tier-2 host
+    eigensolve on the ambiguous lanes. Returns a bool tensor ``[L]`` on
+    the device."""
+    if precomputed is not None:
+        certified, ambiguous, n_amb = precomputed
+    else:
+        cert, finite = stability_screen(ds, conds, ys, pos_tol)
+        good = finite & ok
+        certified = good & cert
+        ambiguous = good & ~certified
+        n_amb = int(ambiguous.sum())
+    if n_amb:
+        idx = np.flatnonzero(ambiguous.cpu().numpy())
+        out = _stability_tier2(ds, conds, ys, idx,
+                               certified.cpu().numpy().copy(), pos_tol)
+        return torch.as_tensor(out, device=ys.device)
+    return certified
 
 
-def _decide(ds, conds, outs, check_stability: bool, has_tof: bool,
-            pos_tol: float) -> dict:
+def stability_mask(spec, conds: Conditions, ys, pos_tol: float = 1e-2,
+                   ok=None, precomputed=None, device=None):
+    """``[lanes]`` Jacobian-eigenvalue stability verdict of the full
+    states ``ys [lanes, n_s]``, two-tier: the tier-0 certificates on the
+    device (Gershgorin, then the deflated Lyapunov witness), both sound
+    one way, then ``numpy.linalg.eigvals`` on the host for the lanes
+    they leave ambiguous. ``ok`` (``[lanes]`` bool) marks converged
+    lanes; the others are reported unstable without an eigensolve.
+    ``precomputed``: the ``(certified, ambiguous, n_ambiguous)`` of the
+    same screen on the same states, which skips tier 0. ``spec`` is a
+    :class:`ModelSpec` or an :class:`~..frontend.abi.AbiLowered` (states
+    and conditions padded). Returns a bool tensor on the device."""
+    ds, conds, _ = _bind(spec, conds, None, device)
+    ys = torch.as_tensor(ys, dtype=torch.float64, device=ds.device)
+    ok = torch.ones(ys.shape[0], dtype=torch.bool, device=ds.device) \
+        if ok is None else torch.as_tensor(ok, device=ds.device).bool()
+    return _stability_mask(ds, conds, ys, pos_tol, ok, precomputed)
+
+
+def _quarantine_mask(res: SteadyStateResults, quarantined=None):
+    """Per-lane NaN quarantine: lanes flagged converged whose state or
+    residual is non-finite are demoted to failed. Returns ``(res,
+    mask)``, the mask ORed into ``quarantined`` when given."""
+    finite = lane_finite_mask(res.x, res.residual)
+    q = res.success & ~finite
+    if quarantined is not None:
+        q = quarantined | q
+    return res._replace(success=res.success & finite), q
+
+
+def _neighbor_seed_lanes(conds: Conditions, success: np.ndarray):
+    """For each failed lane, the index of the nearest converged lane in
+    z-scored condition space (every condition field that varies across
+    lanes), or None when no lane converged or none failed. Host numpy,
+    with scipy's ``cKDTree`` where it imports."""
+    n = len(success)
+    fail_idx = np.flatnonzero(~success)
+    ok_idx = np.flatnonzero(success)
+    if len(ok_idx) == 0 or len(fail_idx) == 0:
+        return None
+    feats = []
+    for a in conds:
+        a = np.asarray(a.cpu() if torch.is_tensor(a) else a)
+        if a.ndim >= 1 and a.shape[0] == n:
+            f = a.reshape(n, -1).astype(np.float64)
+            std = f.std(axis=0)
+            varying = std > 0
+            if varying.any():
+                f = f[:, varying]
+                feats.append((f - f.mean(axis=0)) / std[varying])
+    if not feats:
+        return None
+    X = np.concatenate(feats, axis=1)
+    try:
+        from scipy.spatial import cKDTree
+        _, nn = cKDTree(X[ok_idx]).query(X[fail_idx])
+    except ImportError:
+        nn = _chunked_nearest(X[fail_idx], X[ok_idx])
+    out = np.arange(n)
+    out[fail_idx] = ok_idx[nn]
+    return out
+
+
+def _chunked_nearest(Xf: np.ndarray, Xo: np.ndarray,
+                     chunk: int = 128) -> np.ndarray:
+    """``argmin_j |Xf_i - Xo_j|`` per row, in chunks of ``chunk`` rows
+    (memory ``O(chunk * len(Xo))``)."""
+    o2 = (Xo * Xo).sum(axis=1)
+    nn = np.empty(len(Xf), dtype=np.int64)
+    for s in range(0, len(Xf), chunk):
+        f = Xf[s:s + chunk]
+        d = (f * f).sum(axis=1)[:, None] + o2[None, :] - 2.0 * (f @ Xo.T)
+        nn[s:s + chunk] = np.argmin(d, axis=1)
+    return nn
+
+
+def _polish_opts(opts: SolverOptions) -> SolverOptions:
+    """Pacing of the seeded rescue polish: near-Newton from the first
+    step, one attempt, a short cap."""
+    return opts._replace(dt0=1.0e6, dt_grow_min=30.0, max_steps=60,
+                         max_attempts=1)
+
+
+def _rescue(ds: engine.DeviceSpec, conds: Conditions,
+            res: SteadyStateResults, opts: SolverOptions, strategy: str,
+            seed: int = 1, use_x0: bool = True, neighbor_seed: bool = False,
+            n_failed: int | None = None, codes: np.ndarray | None = None,
+            code: int = 0):
+    """Re-solve the failed lanes of ``res`` with ``strategy`` at ``opts``.
+
+    The failed lanes are gathered (the JAX package pads the subset to a
+    power of two to bound its compiled shapes; nothing here compiles per
+    shape, so the subset runs as it is) and lane ``i`` of the subset
+    takes key ``i`` of ``split(prng_key(seed), n)``, the key the JAX
+    package gives it: the first keys of a split do not depend on its
+    count. ``use_x0`` seeds each lane from its own iterate, or with
+    ``neighbor_seed`` from the nearest converged lane's
+    (:func:`_neighbor_seed_lanes`); ``use_x0=False`` restarts from the
+    base state. Recovered lanes take the rescue's state, verdict,
+    residual and forensic fields, and ``codes[lane] = code`` (host
+    int32 array); iterations, attempts and chords accumulate over every
+    failed lane. ``n_failed``: the failed count if already known.
+    Returns ``(res, n_remaining)``."""
+    if n_failed is None:
+        n_failed = int((~res.success).sum())
+    if n_failed == 0:
+        return res, 0
+    success = res.success.cpu().numpy()
+    idx = np.flatnonzero(~success)
+    seed_lane = idx
+    if use_x0 and neighbor_seed:
+        nn = _neighbor_seed_lanes(conds, success)
+        if nn is not None:
+            seed_lane = nn[idx]
+    dev = res.x.device
+    sel = torch.as_tensor(idx, device=dev)
+    keys = prng.split(prng.prng_key(seed, dev), len(idx))
+    x0 = res.x[torch.as_tensor(seed_lane, device=dev)][:, ds.dyn] \
+        if use_x0 else None
+    out = engine.steady_state(ds, engine.lane_subset(conds, sel), x0=x0,
+                              key=keys, opts=opts, strategy=strategy)
+    got_d = out.success
+    got = got_d.cpu().numpy()
+    n_remaining = int(n_failed - got.sum())
+    if not got.any():
+        return res, n_remaining
+    won = sel[got_d]
+    fields = {}
+    for name in ("x", "residual", "rate_ok", "pos_ok", "sums_ok",
+                 "dt_exit"):
+        fields[name] = getattr(res, name).clone()
+        fields[name][won] = getattr(out, name)[got_d]
+    for name in ("iterations", "attempts", "chords"):
+        fields[name] = getattr(res, name).clone()
+        fields[name][sel] += getattr(out, name)
+    succ = res.success.clone()
+    succ[won] = True
+    if codes is not None:
+        codes[idx[got]] = np.int32(code)
+    return res._replace(success=succ, **fields), n_remaining
+
+
+def _host_lane_telemetry(res: SteadyStateResults, quar, strategy_codes):
+    """The ``[L, 5]`` int32 lane telemetry of a sweep that ran the
+    rescue ladder, built on the host as the JAX package's failure path
+    builds it: the strategy column holds each lane's ladder code (6 on a
+    quarantined lane); the tier column is 0 (the port runs f64 only).
+    Returned on the device of ``res``."""
+    it = res.iterations.cpu().numpy().astype(np.int32)
+    ch = res.chords.cpu().numpy().astype(np.int32)
+    r = res.residual.cpu().numpy().astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        dec = np.floor(np.log10(np.where(r > 0, r, 1.0)))
+    dec = np.where(r > 0, dec, -99.0)
+    dec = np.where(np.isfinite(r), dec, 99.0)
+    dec = np.clip(dec, -99, 99).astype(np.int32)
+    strat = np.where(quar.cpu().numpy(),
+                     np.int32(STRATEGY_CODES["quarantine"]),
+                     np.asarray(strategy_codes, dtype=np.int32))
+    strat = strat.astype(np.int32)
+    tcol = np.zeros_like(strat)
+    return torch.as_tensor(np.stack([it, ch, dec, strat, tcol], axis=-1),
+                           device=res.x.device)
+
+
+def _tof_activity(ds: engine.DeviceSpec, conds: Conditions, ys, tof_mask,
+                  ok):
+    """TOF and activity of every lane at ``ys``, and the count of lanes
+    with ``ok`` and a finite negative TOF."""
+    mask = torch.as_tensor(np.asarray(tof_mask, dtype=np.float64),
+                           dtype=torch.float64, device=ds.device)
+    tofs = engine.tof(ds, conds, ys, mask)
+    act = engine.activity_from_tof(tofs, conds.T)
+    n_neg = int((ok & torch.isfinite(tofs) & (tofs < 0.0)).sum())
+    return tofs, act, n_neg
+
+
+def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
+                  res: SteadyStateResults, opts: SolverOptions, tof_mask,
+                  check_stability: bool, pos_tol: float,
+                  screen=None) -> dict:
+    """The sweep tail after the first solving pass (the JAX package's
+    ``_finish_sweep``): the quarantine, then -- on a clean pass -- the
+    result as is, else the rescue ladder (neighbor-seeded polish, the
+    full PTC solve, LM), the quarantine re-check, with
+    ``check_stability`` the stability verdict (reusing the tier-0 screen
+    when the ladder did not run) and up to three rounds in which every
+    failed lane is re-solved unseeded and the verdict taken again; last,
+    TOF and activity with ``ok = success & stable``. ``screen``: the
+    ``(certified, ambiguous)`` tier-0 screen of ``res`` already computed
+    (the fused sweep's). Returns the result dict."""
+    has_tof = tof_mask is not None
+    res, quar = _quarantine_mask(res)
+    nf = int((~res.success).sum())
+    cert = amb = None
+    n_amb = n_dem = 0
+    if check_stability:
+        if screen is None:
+            c, finite = stability_screen(ds, conds, res.x, pos_tol)
+            good = finite & res.success
+            screen = (good & c, good & ~c)
+        cert, amb = screen
+        n_amb = int(amb.sum())
+        n_dem = int((res.success & ~cert).sum())
+    if nf == 0 and (not check_stability or (n_amb == 0 and n_dem == 0)):
+        tofs = act = None
+        n_neg = 0
+        if has_tof:
+            ok = res.success & cert if check_stability else res.success
+            tofs, act, n_neg = _tof_activity(ds, conds, res.x, tof_mask,
+                                             ok)
+        tel = packed_lane_telemetry(res.iterations, res.chords,
+                                    res.residual, tier=0)
+        return _assemble_clean(res, quar, cert, tofs, act, check_stability,
+                               has_tof, n_neg, tel)
+
+    nf0 = nf
+    strat = np.zeros(len(conds.T), dtype=np.int32)
+    if nf > 0:
+        res, nf = _rescue(ds, conds, res, _polish_opts(opts), "ptc",
+                          neighbor_seed=True, n_failed=nf, codes=strat,
+                          code=STRATEGY_CODES["polish"])
+    if nf > 0:
+        res, nf = _rescue(ds, conds, res, opts, "ptc", neighbor_seed=True,
+                          n_failed=nf, codes=strat,
+                          code=STRATEGY_CODES["ptc"])
+    if nf > 0:
+        res, nf = _rescue(ds, conds, res, opts, "lm", n_failed=nf,
+                          codes=strat, code=STRATEGY_CODES["lm"])
+    if nf0 > 0:
+        res, quar = _quarantine_mask(res, quar)
+    stable = None
+    if check_stability:
+        pre = (cert, amb, n_amb) if nf0 == 0 else None
+        stable = _stability_mask(ds, conds, res.x, pos_tol, res.success,
+                                 precomputed=pre)
+        for round_i in range(3):
+            if int((res.success & ~stable).sum()) == 0:
+                break
+            res = res._replace(success=res.success & stable)
+            res, _ = _rescue(ds, conds, res, opts, "ptc", seed=17 + round_i,
+                             use_x0=False, codes=strat,
+                             code=STRATEGY_CODES["demote"])
+            stable = _stability_mask(ds, conds, res.x, pos_tol, res.success)
+    out = {"y": res.x, "success": res.success, "residual": res.residual,
+           "iterations": res.iterations, "attempts": res.attempts,
+           "quarantined": quar}
+    for name in ("rate_ok", "pos_ok", "sums_ok", "dt_exit", "chords"):
+        v = getattr(res, name, None)
+        if v is not None:
+            out[name] = v
+    out["lane_telemetry"] = _host_lane_telemetry(res, quar, strat)
+    if check_stability:
+        out["stable"] = stable
+        out["success"] = res.success & stable
+    if has_tof:
+        out["tof"], out["activity"], n_neg = _tof_activity(
+            ds, conds, res.x, tof_mask, out["success"])
+        _warn_negative_tof(n_neg)
+    return out
+
+
+def _decide(ds, conds, outs, opts: SolverOptions, tof_mask,
+            check_stability: bool, pos_tol: float) -> dict:
     """The JAX package's ``_fused_decide`` on the fused outputs: one
-    host sync of the bundle decides between the clean assembly and the
-    tier-2-only escalation; anything else raises."""
+    host sync of the bundle decides between the clean assembly, the
+    tier-2-only escalation and the rescue tail (:func:`_finish_sweep`,
+    from the raw fast-pass result)."""
+    has_tof = tof_mask is not None
     res, quar = outs[0], outs[1]
     pos = 2
     cert = amb = None
@@ -263,14 +549,16 @@ def _decide(ds, conds, outs, check_stability: bool, has_tof: bool,
             return _assemble_clean(res, quar, stable, tofs, act,
                                    check_stability, has_tof, n_neg2,
                                    lane_tel)
-        raise _rescue_needed(
-            f"the host eigensolve demoted "
-            f"{int((~stable_h[idx]).sum())} converged lane(s)")
-    if nf:
-        raise _rescue_needed(f"{nf} lane(s) failed the fast pass ({nq} of "
-                             f"them quarantined)")
-    raise _rescue_needed(f"{n_dem - n_amb} converged lane(s) have a "
-                         f"non-finite Jacobian at the stability screen")
+    res_raw = res._replace(success=res.success | quar)
+    return _finish_sweep(ds, conds, res_raw, opts, tof_mask,
+                         check_stability, pos_tol,
+                         screen=(cert, amb) if check_stability else None)
+
+
+def _no_mesh(entry: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"{entry}: multi-device lane sharding is "
+                                  "not ported yet (ROADMAP Queue A item 12)")
 
 
 def sweep_steady_state(spec: ModelSpec, conds: Conditions, tof_mask=None,
@@ -285,8 +573,11 @@ def sweep_steady_state(spec: ModelSpec, conds: Conditions, tof_mask=None,
     ``pos_ok``, ``sums_ok``, ``dt_exit``, ``chords`` and
     ``lane_telemetry [lanes, 5]``; with a ``tof_mask`` also ``tof`` and
     ``activity``; with ``check_stability`` also ``stable``, and
-    converged lanes that are not certified stable are demoted to
+    converged lanes that are not stable are demoted to
     ``success=False``. Every value is a tensor on the sweep's device.
+    Lanes that fail the capped first pass, are quarantined or are
+    demoted by the stability verdict go through the rescue ladder (see
+    the module doc), as in the JAX package.
 
     ``abi=True`` lowers the mechanism into its ABI bucket first (the
     JAX package's ``PYCATKIN_ABI=1``) and runs the padded system, so
@@ -294,21 +585,89 @@ def sweep_steady_state(spec: ModelSpec, conds: Conditions, tof_mask=None,
     a mechanism that fits no bucket warns and runs unpadded.
     ``device=None`` runs on the CUDA card; pass ``"cpu"`` for the CPU.
     ``mesh`` (multi-device lane sharding) is not ported and must be
-    None. Raises ``NotImplementedError`` where the JAX package would
-    rescue lanes (see the module doc)."""
-    if mesh is not None:
-        raise NotImplementedError("sweep_steady_state: multi-device lane "
-                                  "sharding is not ported yet (ROADMAP "
-                                  "Queue A item 12)")
+    None."""
+    _no_mesh("sweep_steady_state", mesh)
     low = _abi.maybe_lower(spec) if abi else None
     if low is not None:
         spec, conds = low, low.pad_conditions(conds)
         tof_mask, x0 = low.pad_tof_mask(tof_mask), low.pad_x0(x0)
     ds, conds, x0 = _bind(spec, conds, x0, device)
-    has_tof = tof_mask is not None
     outs = _fused(ds, conds, tof_mask, x0, fast_pass_opts(opts),
                   pos_jac_tol, check_stability)
-    out = _decide(ds, conds, outs, check_stability, has_tof, pos_jac_tol)
+    out = _decide(ds, conds, outs, opts, tof_mask, check_stability,
+                  pos_jac_tol)
+    if low is not None:
+        out["y"] = low.unpad_y(out["y"])
+    return out
+
+
+def batch_steady_state(spec: ModelSpec, conds: Conditions, x0=None,
+                       opts: SolverOptions = SolverOptions(), mesh=None,
+                       abi: bool = False,
+                       device=None) -> SteadyStateResults:
+    """Solve the steady state of every lane in one call (the JAX
+    package's ``batch_steady_state``): ``engine.steady_state`` at
+    ``opts`` with lane ``i`` keyed by row ``i`` of ``split(prng_key(0),
+    lanes)``. ``x0``: optional ``[lanes, n_dyn]`` initial guesses;
+    ``abi`` lowers into the ABI bucket first (``y`` comes back
+    unpadded). Returns a lane-batched :class:`SteadyStateResults` on
+    the device; ``mesh`` must be None."""
+    _no_mesh("batch_steady_state", mesh)
+    low = _abi.maybe_lower(spec) if abi else None
+    if low is not None:
+        spec, conds, x0 = low, low.pad_conditions(conds), low.pad_x0(x0)
+    ds, conds, x0 = _bind(spec, conds, x0, device)
+    keys = prng.split(prng.prng_key(0, ds.device), len(conds.T))
+    res = engine.steady_state(ds, conds, x0=x0, key=keys, opts=opts)
+    if low is not None:
+        res = res._replace(x=low.unpad_y(res.x))
+    return res
+
+
+def continuation_sweep(spec: ModelSpec, conds: Conditions, order,
+                       tof_mask=None, opts: SolverOptions = SolverOptions(),
+                       stage_opts: SolverOptions | None = None,
+                       check_stability: bool = False,
+                       pos_jac_tol: float = 1e-2, abi: bool = False,
+                       device=None) -> dict:
+    """Warm-started sweep along a continuation axis (the JAX package's
+    ``continuation_sweep``). ``order [n_stages, m]`` holds every lane
+    index exactly once; stage 0 solves its lanes cold at the fast-pass
+    options, every later stage from the previous stage's solutions at
+    ``stage_opts`` (default: near-Newton, ``dt0=1``, ``dt_grow_min=10``,
+    60 steps, one attempt). Stage ``s`` keys its lanes with rows ``s m
+    .. (s + 1) m`` of ``split(prng_key(0), n_stages m)``. The stages are
+    then put back in lane order and finished by the sweep's tail, the
+    rescue ladder included. Returns the dict of
+    :func:`sweep_steady_state`."""
+    low = _abi.maybe_lower(spec) if abi else None
+    if low is not None:
+        spec, conds = low, low.pad_conditions(conds)
+        tof_mask = low.pad_tof_mask(tof_mask)
+    ds, conds, _ = _bind(spec, conds, None, device)
+    order = np.asarray(order)
+    n_stages, m = order.shape
+    n_lanes = len(conds.T)
+    if not np.array_equal(np.sort(order.ravel()), np.arange(n_lanes)):
+        raise ValueError(
+            "continuation_sweep: `order` must contain every lane index "
+            f"exactly once (got shape {order.shape} for {n_lanes} lanes)")
+    first = fast_pass_opts(opts)
+    cont = stage_opts or opts._replace(dt0=1.0, dt_grow_min=10.0,
+                                       max_steps=60, max_attempts=1)
+    keys = prng.split(prng.prng_key(0, ds.device), n_stages * m)
+    stages = []
+    for s in range(n_stages):
+        sub = engine.lane_subset(conds, order[s])
+        x0 = None if s == 0 else stages[-1].x[:, ds.dyn]
+        stages.append(engine.steady_state(
+            ds, sub, x0=x0, key=keys[s * m:(s + 1) * m],
+            opts=first if s == 0 else cont))
+    inv = torch.as_tensor(np.argsort(order.ravel()), device=ds.device)
+    res = SteadyStateResults(*(torch.cat(leaves)[inv]
+                               for leaves in zip(*stages)))
+    out = _finish_sweep(ds, conds, res, opts, tof_mask, check_stability,
+                        pos_jac_tol)
     if low is not None:
         out["y"] = low.unpad_y(out["y"])
     return out

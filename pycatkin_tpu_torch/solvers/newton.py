@@ -1,7 +1,8 @@
 """Steady-state solver: pseudo-transient continuation over a lane batch
-(PyTorch port of the single-attempt fast pass of
-``pycatkin_tpu/solvers/newton.py``), plus the verdicts, the packed
-telemetry and the tier-0 Lyapunov stability certificate.
+(PyTorch port of ``pycatkin_tpu/solvers/newton.py``): the PTC and
+projected Levenberg-Marquardt attempts, the single-attempt fast pass and
+the general multi-attempt solve with random restarts, plus the verdicts,
+the packed telemetry and the tier-0 Lyapunov stability certificate.
 
 One PTC attempt solves ``(I/dt - J) dx = F(x)``, ``x += dx``, with ``dt``
 adapted by the ratio of successive residual norms; ``dt -> inf``
@@ -11,7 +12,9 @@ that batching rule: every iteration computes the body for every lane and
 keeps the old state (``x``, ``F``, ``dt``, ``fnorm``, ``k``, the chord
 counter) where a lane is done. No arithmetic crosses lanes. Deciding on
 the host whether any lane is still active is one device-to-host sync per
-iteration, counted in :data:`SYNCS`.
+iteration, counted in :data:`SYNCS`. The multi-attempt loop is the same
+batching rule one level up; it runs each attempt on the lanes still
+failing only, which changes no lane's result.
 """
 
 from __future__ import annotations
@@ -21,11 +24,12 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops import linalg
+from ..ops import linalg, prng
 
-#: Device-to-host syncs spent by the batched loop since the last
-#: :func:`reset_syncs` (one per PTC iteration plus the exit check).
-SYNCS = {"ptc_active": 0}
+#: Device-to-host syncs spent by the batched loops since the last
+#: :func:`reset_syncs`: one per PTC or LM iteration plus each loop's
+#: exit check, and one per attempt of the multi-attempt loop.
+SYNCS = {"ptc_active": 0, "lm_active": 0, "attempt_active": 0}
 
 
 def reset_syncs() -> None:
@@ -81,11 +85,18 @@ def _normalize(x, groups_dyn, floor):
     return torch.where(in_group, x * scale, x)
 
 
+def _tol_scale(gross, opts: SolverOptions):
+    """``rate_tol + rate_tol_rel * gross`` rounded once (``addcmul``), as
+    XLA's CPU backend fuses the JAX package's expression into one
+    multiply-add."""
+    return torch.addcmul(_full(gross, opts.rate_tol), gross,
+                         _full(gross, opts.rate_tol_rel))
+
+
 def _rnorm(F, gross, opts: SolverOptions):
     """Normalized residual per lane: ``max_i |F_i| / (atol + rtol *
     gross_i)``; converged when <= 1."""
-    return torch.amax(torch.abs(F) / (opts.rate_tol
-                                      + opts.rate_tol_rel * gross), dim=-1)
+    return torch.amax(torch.abs(F) / _tol_scale(gross, opts), dim=-1)
 
 
 def conservation_constraints(groups_dyn):
@@ -111,10 +122,20 @@ def conservation_constraints(groups_dyn):
 def _direction_factor(A):
     """Factor the batched PTC matrices ``A [L, n, n]`` once and return the
     solve closure (chord steps reuse it) -- the one direction-solve site,
-    routed by :func:`linalg.select_solver`: the Gauss-Jordan inverse
-    for n <= 48 off the bucket sizes, else the ``lu_factor`` +
-    ``lu_solve`` kernels (their plain versions on the CPU)."""
+    routed by :func:`linalg.select_solver` as the JAX package's
+    ``_direction_factor`` routes it: off the bucket sizes at n <= 48 one
+    Gauss-Jordan solve of ``A`` per right-hand side, else the
+    ``lu_factor`` + ``lu_solve`` kernels (their plain versions on the
+    CPU). The JAX package's ``opts`` argument only chooses between two
+    forms of its LU route, ``lu_solve(*lu_factor(A), b)`` per solve or
+    one factorization reused, which give the same bits; the port always
+    factors once."""
     return linalg.make_msolve(A)
+
+
+def _direction_solve(A, b):
+    """One-shot direction solve through :func:`_direction_factor`."""
+    return _direction_factor(A)(b)
 
 
 def _ptc_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
@@ -219,34 +240,162 @@ def _score(x, fnorm, groups_dyn, opts: SolverOptions):
     return passed * big - torch.minimum(fnorm, _full(fnorm, 0.5 * big))
 
 
+def _lm_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
+    """One projected Levenberg-Marquardt run of every lane from ``x0 [L,
+    n]``: it descends ``||F / scale||^2`` with ``scale = rate_tol +
+    rate_tol_rel * gross`` frozen at each iterate, the damping ``lam *
+    max(diag JtJ)`` starting at ``lam = 1e-10``, the conservation rows
+    replaced as in the PTC step and the same projection. A step is kept
+    on a strict residual decrease (``lam / 3``, floor 1e-12), else
+    ``lam * 10`` (cap 1e12). Returns ``(x, normalized_residual, steps,
+    lam_at_exit, chords)`` with chords 0, the layout of
+    :func:`_ptc_attempt`."""
+    L, n = x0.shape
+    eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
+    R, M = conservation_constraints(groups_dyn)
+    con_rows = M[:, None] > 0
+    keep_rows = 1.0 - M
+    zero = torch.zeros((), dtype=x0.dtype, device=x0.device)
+
+    F, gross = fscale_fn(x0)
+    fnorm = _rnorm(F, gross, opts)
+    x = x0
+    lam = torch.full((L,), 1.0e-10, dtype=x0.dtype, device=x0.device)
+    k = torch.zeros(L, dtype=torch.int64, device=x0.device)
+    while True:
+        active = (k < opts.max_steps) & (fnorm > 1.0)
+        SYNCS["lm_active"] += 1
+        if not bool(active.any()):
+            break
+        scale = _tol_scale(gross, opts)
+        J = jac_fn(x) / scale[:, :, None]
+        Jt = J.transpose(-2, -1)
+        JtJ = Jt @ J
+        dmax = torch.clamp(torch.amax(torch.diagonal(JtJ, dim1=-2, dim2=-1),
+                                      dim=-1), min=1e-300)
+        A = torch.where(con_rows, R,
+                        JtJ + (lam * dmax)[:, None, None] * eye)
+        g = torch.where(M > 0, zero, (Jt @ (F / scale)[:, :, None])[..., 0])
+        dx = _direction_solve(A.contiguous(), (-g * keep_rows).contiguous())
+        x_new = _normalize(torch.maximum(x + dx, zero), groups_dyn,
+                           opts.floor)
+        F_new, gross_new = fscale_fn(x_new)
+        fnorm_new = _rnorm(F_new, gross_new, opts)
+        finite = torch.isfinite(fnorm_new) & torch.all(
+            torch.isfinite(x_new), dim=-1)
+        take = active & finite & (fnorm_new < fnorm)
+        # lam / 3 as XLA compiles the JAX package's: times the rounded
+        # reciprocal of 3.
+        lam_new = torch.where(take, torch.clamp(lam * (1.0 / 3.0),
+                                                min=1e-12),
+                              torch.clamp(lam * 10.0, max=1e12))
+        x = torch.where(take[:, None], x_new, x)
+        F = torch.where(take[:, None], F_new, F)
+        gross = torch.where(take[:, None], gross_new, gross)
+        fnorm = torch.where(take, fnorm_new, fnorm)
+        lam = torch.where(active, lam_new, lam)
+        k = torch.where(active, k + 1, k)
+    return x, fnorm, k, lam, torch.zeros(L, dtype=torch.int32,
+                                         device=x0.device)
+
+
 def solve_steady(fscale_fn: Callable, jac_fn: Callable, x0, groups_dyn,
-                 opts: SolverOptions):
-    """Single-attempt steady solve of ``F(x) = 0`` for every lane.
+                 opts: SolverOptions, key=None, strategy: str = "ptc",
+                 lanes: Callable | None = None):
+    """Steady solve of ``F(x) = 0`` for every lane.
 
     ``fscale_fn(x) -> (F, gross)`` and ``jac_fn(x) -> J`` act on the lane
     batch ``x [L, n]``; ``groups_dyn [n_g, n]`` are the conservation
-    groups over the dynamic indices. Only ``opts.max_attempts == 1`` is
-    ported (the sweep's fast pass, which draws no random numbers); the
-    attempt's result is kept over ``x0`` when it passes the verdict or
-    scores better. Returns ``(x, success, normalized_residual,
-    iterations, attempts, rate_ok, pos_ok, sums_ok, dt_exit, chords)``.
-    """
-    if opts.max_attempts != 1:
-        raise NotImplementedError(
-            "multi-attempt solves (random restarts, the rescue ladder) are "
-            "not ported yet (ROADMAP, Queue A: rescue and tier-2)")
+    groups over the dynamic indices. ``strategy`` is ``"ptc"`` or
+    ``"lm"`` (:func:`_lm_attempt`).
+
+    With ``opts.max_attempts == 1`` one attempt runs from ``x0`` and is
+    kept over ``x0`` when it passes the verdict or scores better: the
+    sweep's fast pass and the polish rung. (The JAX package's rescue
+    program takes its general loop at one attempt too, its
+    ``max_attempts`` being traced; at one attempt the two give the same
+    bits.) Otherwise the general loop runs up to ``max_attempts``
+    attempts per lane, stopping a lane at its first success. ``key [L,
+    2]`` holds each lane's PRNG key (:mod:`..ops.prng`; None:
+    ``prng_key(0)`` for every lane) and is split at every attempt;
+    attempt 0 starts from ``x0``, attempt 1 from the renormalized
+    ``|x|`` of attempt 0's output, later attempts from a renormalized
+    uniform draw. The best-scoring iterate (from ``score(x0)``, replaced
+    on a strict gain) is returned where no attempt succeeded; a success
+    re-evaluates its residual. The loop needs ``lanes(idx) ->
+    (fscale_fn, jac_fn)`` restricted to the lanes ``idx`` (a long
+    tensor): each attempt after a success runs only the lanes still
+    failing, and a finished lane keeps its state.
+
+    Returns ``(x, success, normalized_residual, iterations, attempts,
+    rate_ok, pos_ok, sums_ok, dt_exit, chords)``; ``dt_exit`` is the last
+    attempt's exit pseudo-step (PTC) or damping (LM)."""
+    attempt_fn = _lm_attempt if strategy == "lm" else _ptc_attempt
     F0, gross0 = fscale_fn(x0)
     f0 = _rnorm(F0, gross0, opts)
-    x1, f1, k, dt_exit, chords = _ptc_attempt(fscale_fn, jac_fn, x0,
-                                              groups_dyn, opts)
-    ok = _verdict(x1, f1, groups_dyn, opts)
-    better = _score(x1, f1, groups_dyn, opts) > _score(x0, f0, groups_dyn,
-                                                      opts)
-    take = ok | better
-    x_out = torch.where(take[:, None], x1, x0)
-    f_out = torch.where(take, f1, f0)
+    if opts.max_attempts == 1:
+        x1, f1, k, dt_exit, chords = attempt_fn(fscale_fn, jac_fn, x0,
+                                                groups_dyn, opts)
+        ok = _verdict(x1, f1, groups_dyn, opts)
+        better = _score(x1, f1, groups_dyn, opts) > _score(x0, f0,
+                                                          groups_dyn, opts)
+        take = ok | better
+        x_out = torch.where(take[:, None], x1, x0)
+        f_out = torch.where(take, f1, f0)
+        rate_ok, pos_ok, sums_ok = _verdict_tests(x_out, f_out, groups_dyn,
+                                                  opts)
+        return (x_out, ok, f_out, k, torch.ones_like(k), rate_ok, pos_ok,
+                sums_ok, dt_exit, chords)
+
+    if lanes is None:
+        raise ValueError("a multi-attempt solve needs lanes(idx) -> "
+                         "(fscale_fn, jac_fn) over a subset of the lanes")
+    L, n = x0.shape
+    dev = x0.device
+    key = prng.prng_key(0, dev).expand(L, 2) if key is None else \
+        torch.as_tensor(key, dtype=torch.int64, device=dev).expand(L, 2)
+    key = key.clone()
+    x, best_x = x0.clone(), x0.clone()
+    best_f = f0.clone()
+    best_s = _score(x0, f0, groups_dyn, opts)
+    success = torch.zeros(L, dtype=torch.bool, device=dev)
+    iters = torch.zeros(L, dtype=torch.int64, device=dev)
+    attempts = torch.zeros(L, dtype=torch.int64, device=dev)
+    dt_exit = torch.full((L,), float(opts.dt0), dtype=x0.dtype, device=dev)
+    chords = torch.zeros(L, dtype=torch.int32, device=dev)
+    for attempt in range(opts.max_attempts):
+        SYNCS["attempt_active"] += 1
+        sel = torch.nonzero(~success).flatten()
+        if sel.numel() == 0:
+            break
+        fs, jf = (fscale_fn, jac_fn) if sel.numel() == L else lanes(sel)
+        pair = prng.split(key[sel])
+        if attempt == 0:
+            x_start = x[sel]
+        elif attempt == 1:
+            x_start = _normalize(torch.abs(x[sel]), groups_dyn, opts.floor)
+        else:
+            x_start = _normalize(prng.uniform(pair[:, 1], (n,)), groups_dyn,
+                                 opts.floor)
+        x_new, fnorm, k, dt_new, nch = attempt_fn(
+            fs, jf, x_start.contiguous(), groups_dyn, opts)
+        s_new = _score(x_new, fnorm, groups_dyn, opts)
+        better = s_new > best_s[sel]
+        best_x[sel[better]] = x_new[better]
+        best_f[sel[better]] = fnorm[better]
+        best_s[sel[better]] = s_new[better]
+        x[sel] = x_new
+        success[sel] = _verdict(x_new, fnorm, groups_dyn, opts)
+        iters[sel] += k
+        attempts[sel] += 1
+        dt_exit[sel] = dt_new
+        chords[sel] += nch
+        key[sel] = pair[:, 0]
+    Fx, grossx = fscale_fn(x)
+    f_out = torch.where(success, _rnorm(Fx, grossx, opts), best_f)
+    x_out = torch.where(success[:, None], x, best_x)
     rate_ok, pos_ok, sums_ok = _verdict_tests(x_out, f_out, groups_dyn, opts)
-    return (x_out, ok, f_out, k, torch.ones_like(k), rate_ok, pos_ok,
+    return (x_out, success, f_out, iters, attempts, rate_ok, pos_ok,
             sums_ok, dt_exit, chords)
 
 
@@ -274,6 +423,20 @@ def packed_sweep_diagnostics(success, quarantined, ambiguous=None,
         torch.sum(quarantined).to(torch.int32),
         _count(ambiguous), _count(demoted), _count(n_negative_tof)])
 
+
+#: Rescue-strategy codes of the lane telemetry's ``strategy`` column: 0
+#: solved by the fast pass, then the rescue ladder's rungs in order and
+#: the two terminal demotions.
+STRATEGY_CODES = {
+    "clean": 0,
+    "polish": 1,
+    "ptc": 2,
+    "lm": 3,
+    "unseeded": 4,
+    "demote": 5,
+    "quarantine": 6,
+}
+STRATEGY_NAMES = {v: k for k, v in STRATEGY_CODES.items()}
 
 #: Column order of the packed per-lane telemetry.
 LANE_TELEMETRY_FIELDS = ("iterations", "chords", "residual_decade",
@@ -402,3 +565,21 @@ def stability_tolerance_from_scale(scale, pos_tol: float = 1e-2,
     if eps is None:
         eps = float(torch.finfo(scale.dtype).eps)
     return pos_tol + 64.0 * eps * scale
+
+
+def stability_tolerance(jac: np.ndarray, pos_tol: float = 1e-2):
+    """:func:`stability_tolerance_from_scale` of host Jacobians ``[...,
+    n, n]`` (numpy), with their dtype's epsilon; returns ``[...]``."""
+    jac = np.asarray(jac)
+    scale = np.abs(jac).max(axis=(-2, -1))
+    return stability_tolerance_from_scale(scale, pos_tol,
+                                          float(np.finfo(jac.dtype).eps))
+
+
+def jacobian_eigenvalues_stable(jac: np.ndarray, pos_tol: float = 1e-2):
+    """Host stability verdict per Jacobian of ``jac [..., n, n]`` (numpy):
+    every eigenvalue's real part at most :func:`stability_tolerance`.
+    Returns a numpy bool array ``[...]``."""
+    eig = np.linalg.eigvals(np.asarray(jac))
+    return np.all(eig.real <= stability_tolerance(jac, pos_tol)[..., None],
+                  axis=-1)

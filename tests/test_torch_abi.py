@@ -13,8 +13,7 @@
   flagship) and the 16 x 16 Kronecker solves to the batched LU.
 - ``sweep_steady_state`` with ``abi`` True and False against the JAX
   one (``PYCATKIN_ABI`` set to match), including the tier-2 host
-  eigensolve and a case that needs the rescue ladder, which the port
-  refuses with ``NotImplementedError``.
+  eigensolve (the rescue ladder: ``tests/test_torch_rescue.py``).
 
 Verdict masks and the diagnostics bundle must be bitwise equal; states,
 TOF and activity within the repo's cross-kernel envelope, rtol 1e-5 /
@@ -40,7 +39,6 @@ from pycatkin_tpu_torch.frontend.spec import (conditions_from_arrays,
                                               spec_from_arrays)
 from pycatkin_tpu_torch.ops import cuda_linalg, linalg
 from pycatkin_tpu_torch.parallel import batch
-from pycatkin_tpu_torch.solvers import newton
 
 L = 8
 NAMES = ("res", "quar", "cert", "amb", "tofs", "act", "neg", "telemetry",
@@ -290,38 +288,6 @@ def test_tier2_escalation_matches_jax(monkeypatch):
                     pos_jac_tol=0.02)
     assert bool(pt["stable"].all())
     _assert_sweeps_agree(pt, pj)
-
-
-def _bistable_unstable_seeded():
-    from tests.test_verdicts import A_STABLE, A_UNSTABLE, _full_y
-    from tests.test_verdicts import bistable as fixture
-    sim = fixture.__wrapped__()
-    dyn = np.asarray(sim.spec.dynamic_indices)
-    cj = jbatch.stack_conditions([sim.conditions()] * 2)
-    x0 = np.stack([_full_y(sim, A_UNSTABLE)[dyn],
-                   _full_y(sim, A_STABLE)[dyn]])
-    return sim.spec, cj, x0
-
-
-@pytest.mark.parametrize("case", ["unstable_root", "fast_pass_fails"])
-def test_lanes_needing_rescue_raise(case):
-    """Where the JAX package hands lanes to its rescue ladder, the port
-    raises rather than return a different result: a lane seeded on the
-    bistable mechanism's unstable root converges there and the host
-    eigensolve demotes it; on the flagship, a 3-iteration cap leaves
-    lanes unconverged."""
-    if case == "unstable_root":
-        sj, cj, x0 = _bistable_unstable_seeded()
-        kw = dict(x0=x0, check_stability=True)
-        match = "eigensolve demoted 1"
-    else:
-        sj, cj, _ = _case(24, 32)
-        kw = dict(opts=newton.SolverOptions(max_steps=3))
-        match = "failed the fast pass"
-    for use_abi in (False, True):
-        with pytest.raises(NotImplementedError, match=match):
-            batch.sweep_steady_state(_port_spec(sj), _port_conds(cj),
-                                     abi=use_abi, device="cpu", **kw)
 
 
 def test_abi_without_a_bucket_warns_and_runs_unpadded():

@@ -166,3 +166,262 @@ def test_large_mechanism_sweep_on_the_card_matches_the_cpu(device):
         gpu[0].x.cpu()[:, list(spec.dynamic_indices)])
     rn = newton._rnorm(F, gross, newton.SolverOptions())
     assert float(rn.max()) <= 1.0 + 1e-3
+
+
+def test_prng_on_the_card_matches_the_cpu(device):
+    from pycatkin_tpu_torch.ops import prng
+
+    keys = prng.split(prng.prng_key(0, device), 4096)
+    keys_c = prng.split(prng.prng_key(0), 4096)
+    assert torch.equal(keys.cpu(), keys_c)
+    got = prng.uniform(prng.split(keys)[:, 1], (32,))
+    assert torch.equal(got.cpu(), prng.uniform(prng.split(keys_c)[:, 1],
+                                               (32,)))
+
+
+ULP = 1.0 + 2.0 ** -52
+
+
+def _one_ulp_runs(conds):
+    """``conds`` with T up, T down and kscale up by one ulp."""
+    return (conds._replace(T=conds.T * ULP), conds._replace(T=conds.T / ULP),
+            conds._replace(kscale=conds.kscale * ULP))
+
+
+def _hold(name, got, want, spreads):
+    """The card's ``got`` within rtol 1e-5 / atol 1e-12 of the CPU's
+    ``want``, or within twice the largest distance of the CPU's own
+    one-ulp runs ``spreads`` from it (the rule of
+    ``tests/test_torch_rescue.py``)."""
+    got = got.cpu()
+    if torch.allclose(got, want, rtol=1e-5, atol=1e-12):
+        return
+    own = max(float((s - want).abs().max()) for s in spreads)
+    assert float((got - want).abs().max()) <= 2.0 * own, name
+
+
+def _abi_flagship(lanes, device, perturb=None):
+    """The ABI flagship on ``lanes`` lanes, T 400-800 K; ``perturb``
+    maps the conditions before binding."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.frontend import abi
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+
+    spec, base = synthetic_spec(24, 32, seed=0)
+    conds = batch.broadcast_conditions(base, lanes)._replace(
+        T=np.linspace(400.0, 800.0, lanes))
+    if perturb is not None:
+        conds = perturb(conds)
+    low = abi.lower_spec(spec)
+    return (engine.bind(low, device),
+            engine.conditions_to(low.pad_conditions(conds), device))
+
+
+@pytest.mark.parametrize("strategy", ["ptc", "lm"])
+def test_multi_attempt_solve_on_the_card_matches_the_cpu(device, strategy):
+    """Three attempts of 20 steps from ``split(prng_key(0), L)`` on the ABI
+    flagship (D = 32: ``lu_factor`` + ``lu_solve``): counts and verdicts
+    equal to the CPU's; the converged states and, apart, the best
+    unconverged ones (every LM lane) by :func:`_hold`."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.ops import prng
+    from pycatkin_tpu_torch.solvers import newton
+
+    opts = newton.SolverOptions(max_steps=20, max_attempts=3)
+
+    def solve(dev, perturb=None):
+        ds, ct = _abi_flagship(32, dev, perturb)
+        return engine.steady_state(
+            ds, ct, key=prng.split(prng.prng_key(0, dev), 32), opts=opts,
+            strategy=strategy)
+
+    cl.reset_launches()
+    gpu = solve(device)
+    assert cl.LAUNCHES["lu_factor"] > 0
+    cpu = solve("cpu")
+    for name in ("success", "attempts", "iterations", "rate_ok", "pos_ok",
+                 "sums_ok"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    spreads = [solve("cpu", lambda c, i=i: _one_ulp_runs(c)[i]).x
+               for i in range(3)]
+    ok = cpu.success
+    for lanes in (ok, ~ok):
+        _hold("x", gpu.x[lanes.to(gpu.x.device)], cpu.x[lanes],
+              [s[lanes] for s in spreads])
+
+
+def test_rescue_ladder_on_the_card_matches_the_cpu(device):
+    """The JAX package's failure corpus lowered into its bucket: 48 lanes,
+    ``max_steps=6, max_attempts=2``; every lane fails the fast pass and
+    goes through the ladder on the card's kernels. Verdicts, attempts
+    and strategy codes equal to the CPU's. States, TOF and activity
+    within rtol 1e-5 / atol 1e-12, or, where the polish lands a lane
+    near the mechanism's sign change of TOF, within twice the spread of
+    the CPU's own runs with T up, T down and kscale up one ulp (the rule
+    of tests/test_torch_ladder.py); converged states pass the
+    convergence test on the CPU."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import newton
+
+    spec, base = synthetic_spec(24, 32, seed=0)
+    conds = batch.broadcast_conditions(base, 48)._replace(
+        T=np.linspace(400.0, 800.0, 48))
+    mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
+    kw = dict(opts=newton.SolverOptions(max_steps=6, max_attempts=2),
+              check_stability=True, abi=True)
+    cl.reset_launches()
+    gpu = batch.sweep_steady_state(spec, conds, mask, device=device, **kw)
+    assert all(v > 0 for v in cl.LAUNCHES.values()), cl.LAUNCHES
+    cpu = batch.sweep_steady_state(spec, conds, mask, device="cpu", **kw)
+    for k in ("success", "stable", "quarantined", "attempts"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    assert torch.equal(gpu["lane_telemetry"][:, 3].cpu(),
+                       cpu["lane_telemetry"][:, 3])
+    assert bool((cpu["lane_telemetry"][:, 3] != 0).all())
+    spreads = [batch.sweep_steady_state(spec, c, mask, device="cpu", **kw)
+               for c in _one_ulp_runs(conds)]
+    for k in ("y", "tof", "activity"):
+        _hold(k, gpu[k], cpu[k], [s[k] for s in spreads])
+    ds = engine.bind(spec, "cpu")
+    ct = engine.conditions_to(conds, "cpu")
+    kf, kr, _ = engine.rate_constants(ds, ct)
+    F, gross = engine.closures(ds, ct, kf, kr).fscale(
+        gpu["y"].cpu()[:, list(spec.dynamic_indices)])
+    rn = newton._rnorm(F, gross, newton.SolverOptions())
+    assert float(rn[cpu["success"]].max()) <= 1.0 + 1e-3
+
+
+def test_rescue_rungs_on_the_card_match_the_cpu(device):
+    """The ladder's later rungs on the failed lanes of a 25-step fast pass
+    of the ABI flagship (32 lanes, five of which converge), at 40 steps
+    and three attempts. Through ``batch._rescue``: the PTC rung seeded
+    from the nearest converged lane (code 2; some lanes take all three
+    attempts, the last from a threefry draw) and a demote round's
+    unseeded PTC (seed 17, code 5), equal to the CPU's in codes, counts
+    and verdicts, the recovered states within rtol 1e-5 / atol 1e-12.
+    LM recovers no lane of this mechanism (nor in the JAX package), so
+    its rung program is held as a whole: counts and verdicts equal, the
+    best unconverged states by :func:`_hold`. ``lu_factor`` and
+    ``lu_solve`` launched on the card."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.ops import prng
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import newton
+
+    opts = newton.SolverOptions(max_steps=40, max_attempts=3)
+    fast_opts = batch.fast_pass_opts(newton.SolverOptions(max_steps=25))
+    rungs = (("ptc", dict(neighbor_seed=True), newton.STRATEGY_CODES["ptc"]),
+             ("ptc", dict(seed=17, use_x0=False),
+              newton.STRATEGY_CODES["demote"]))
+
+    def run(dev, perturb=None):
+        ds, ct = _abi_flagship(32, dev, perturb)
+        fast = engine.steady_state(ds, ct, opts=fast_opts)
+        failed = torch.nonzero(~fast.success).flatten()
+        lm = engine.steady_state(
+            ds, engine.lane_subset(ct, failed), x0=fast.x[failed][:, ds.dyn],
+            key=prng.split(prng.prng_key(1, dev), failed.numel()), opts=opts,
+            strategy="lm")
+        if perturb is not None:
+            return lm
+        out = []
+        for strategy, kw, code in rungs:
+            codes = np.zeros(32, dtype=np.int32)
+            out.append(batch._rescue(ds, ct, fast, opts, strategy,
+                                     codes=codes, code=code, **kw) + (codes,))
+        return fast, lm, out
+
+    cl.reset_launches()
+    fast_g, lm_g, gpu = run(device)
+    assert cl.LAUNCHES["lu_factor"] > 0 and cl.LAUNCHES["lu_solve"] > 0
+    fast_c, lm_c, cpu = run("cpu")
+    assert torch.equal(fast_g.success.cpu(), fast_c.success)
+    assert 0 < int((~fast_c.success).sum()) < 32
+    for (rg, lg, cg), (rc, lc, cc) in zip(gpu, cpu):
+        assert lg == lc and np.array_equal(cg, cc)
+        assert np.any(cc != 0)
+        for name in ("success", "attempts", "iterations", "rate_ok",
+                     "pos_ok", "sums_ok"):
+            assert torch.equal(getattr(rg, name).cpu(), getattr(rc, name)), \
+                name
+        won = torch.as_tensor(cc != 0)
+        assert torch.allclose(rg.x.cpu()[won], rc.x[won], rtol=1e-5,
+                              atol=1e-12)
+    assert int(cpu[0][0].attempts.max()) == 4
+    for name in ("success", "attempts", "iterations", "rate_ok", "pos_ok",
+                 "sums_ok"):
+        assert torch.equal(getattr(lm_g, name).cpu(), getattr(lm_c, name)), \
+            name
+    assert not bool(lm_c.success.any())
+    _hold("lm x", lm_g.x, lm_c.x,
+          [run("cpu", lambda c, i=i: _one_ulp_runs(c)[i]).x
+           for i in range(3)])
+
+
+def bistable_port():
+    """The JAX package's bistable test mechanism (``tests/test_verdicts.py``:
+    ``s + 2 sa -> 3 sa`` at k1 = 10 and ``sa -> s`` at k2 = 1, 500 K, so
+    ``da/dt = a (k1 a (1 - a) - k2)`` has stable roots at a = 0 and a ~
+    0.8873 and an unstable one at a ~ 0.1127), built with the port's
+    frontend. Returns ``(spec, conds, x0)``: three lanes starting on the
+    unstable root, the stable one and a = 0."""
+    from pycatkin_tpu_torch.constants import R, eVtokJ, h, kB
+    from pycatkin_tpu_torch.frontend import reactions as rx
+    from pycatkin_tpu_torch.frontend import spec as sp
+    from pycatkin_tpu_torch.frontend import states as st
+    from pycatkin_tpu_torch.models.reactor import InfiniteDilutionReactor
+    from pycatkin_tpu_torch.parallel import batch
+
+    T = 500.0
+
+    def barrier(k):
+        return -R * T * np.log(k * h / (kB * T)) / (eVtokJ * 1.0e3)
+
+    s = st.State(name="s", state_type="surface")
+    sa = st.State(name="sa", state_type="adsorbate")
+    reactions = {r.name: r for r in (
+        rx.UserDefinedReaction(name="r1", reac_type="arrhenius",
+                               reversible=False, reactants=[s, sa, sa],
+                               products=[sa, sa, sa], dGrxn_user=0.0,
+                               dGa_fwd_user=barrier(10.0)),
+        rx.UserDefinedReaction(name="r2", reac_type="arrhenius",
+                               reversible=False, reactants=[sa],
+                               products=[s], dGrxn_user=0.0,
+                               dGa_fwd_user=barrier(1.0)))}
+    reactor = InfiniteDilutionReactor()
+    spec = sp.build_spec({"s": s, "sa": sa}, reactions,
+                         reactor=reactor.reactor_type,
+                         reactor_params=reactor.params())
+    cond = sp.default_conditions(spec, reactions, T=T, p=1.0e5,
+                                 start_state={"s": 1.0}, gelec_overrides={},
+                                 eps={})
+    roots = (10.0 - np.sqrt(60.0)) / 20.0, (10.0 + np.sqrt(60.0)) / 20.0, 0.0
+    y = np.zeros((3, spec.n_species))
+    y[:, spec.sindex("s")] = 1.0 - np.array(roots)
+    y[:, spec.sindex("sa")] = roots
+    return (spec, batch.broadcast_conditions(cond, 3),
+            y[:, list(spec.dynamic_indices)])
+
+
+def test_demote_loop_on_the_card_matches_the_cpu(device):
+    """Lane 0 of the bistable mechanism starts on its unstable root,
+    converges there, is demoted by the host eigensolve and re-solved
+    unseeded (the demote rounds, seeds 17-19) onto a stable root, on the
+    card as on the CPU: counts, verdicts and strategy codes equal, states
+    within rtol 1e-5 / atol 1e-12."""
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import newton
+
+    spec, conds, x0 = bistable_port()
+    gpu, cpu = (batch.sweep_steady_state(spec, conds, x0=x0,
+                                         check_stability=True, device=dev)
+                for dev in (device, "cpu"))
+    for k in ("success", "stable", "quarantined", "attempts", "iterations",
+              "lane_telemetry"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    assert int(cpu["lane_telemetry"][0, 3]) == newton.STRATEGY_CODES["demote"]
+    assert bool(cpu["success"].all()) and bool(cpu["stable"].all())
+    assert torch.allclose(gpu["y"].cpu(), cpu["y"], rtol=1e-5, atol=1e-12)

@@ -78,17 +78,16 @@ def test_plain_versions_match_xla_lu(n, k):
     assert _rel(LUt, LUj) <= TOL
     assert _rel(cl.lu_solve(LUt, pt, _t(b)), xj) <= TOL
     assert _rel(cl.factor_solve(_t(A), _t(b)), xj) <= TOL
-    # The seam routes as the JAX package's: n = 64 by LU (the
-    # composition above), n = 21 by Gauss-Jordan.
+    # The seam routes as the JAX package's direction solve: n = 64 by LU
+    # (the composition above), n = 21 by one Gauss-Jordan solve per
+    # right-hand side, the factor-once closure too.
     if jlinalg.select_solver(n).path == "gauss":
         sj = jax.jit(jax.vmap(jlinalg.gauss_solve))(jnp.asarray(A),
                                                     jnp.asarray(b))
-        mj = jax.jit(jax.vmap(lambda M, r: jlinalg._make_inv_solve(M)(r)))(
-            jnp.asarray(A), jnp.asarray(b))
     else:
-        sj = mj = xj
+        sj = xj
     assert _rel(linalg.solve(_t(A), _t(b)), sj) <= TOL
-    assert _rel(linalg.make_msolve(_t(A))(_t(b)), mj) <= TOL
+    assert _rel(linalg.make_msolve(_t(A))(_t(b)), sj) <= TOL
 
 
 @pytest.mark.parametrize("n", [5, 21])
@@ -166,23 +165,22 @@ def test_select_solver_policy(monkeypatch):
 
 @pytest.mark.parametrize("n", [5, 21, 48])
 def test_gauss_jordan_route_matches_jax(n):
-    """Below 49, off the buckets: the explicit inverse and the
-    factor-once solve are the JAX package's ``inv`` / ``_make_inv_solve``
-    -- the inverse bit for bit (the same arithmetic, each update rounded
-    once), the matvec within TOL -- and no kernel is launched."""
+    """Below 49, off the buckets: the explicit inverse is the JAX
+    package's ``inv`` and the factor-once solve its direction solve, one
+    ``gauss_solve`` per right-hand side, both bit for bit (the same
+    arithmetic, each update rounded once), and no kernel is launched."""
     A, b = _systems(n, seed=11)
     A *= 10.0 ** np.random.default_rng(n).uniform(-12, 12, (LANES, n, 1))
     cl.reset_launches()
     inv_j = jax.jit(jax.vmap(jlinalg.inv))(jnp.asarray(A))
     assert np.array_equal(linalg.inv(_t(A)).numpy(), np.asarray(inv_j))
     assert linalg.select_solver(n).path == "gauss"
-    # _make_inv_solve(M)(r) is inv(M) @ r; the inverse is reused here
-    # rather than unrolled and compiled once more.
-    matvec = jax.jit(jax.vmap(lambda Minv, r: Minv @ r))
     B = np.stack([b, 2.0 * b], axis=-1)
+    solve = linalg.make_msolve(_t(A))
     for rhs in (b, B):
-        want = matvec(inv_j, jnp.asarray(rhs))
-        assert _rel(linalg.make_msolve(_t(A))(_t(rhs)), want) <= TOL
+        want = jax.jit(jax.vmap(jlinalg.gauss_solve))(jnp.asarray(A),
+                                                      jnp.asarray(rhs))
+        assert np.array_equal(solve(_t(rhs)).numpy(), np.asarray(want))
     assert cl.LAUNCHES == {"lu_factor": 0, "lu_solve": 0, "factor_solve": 0}
 
 

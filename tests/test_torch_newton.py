@@ -1,5 +1,6 @@
-"""The port's single-attempt PTC solver and tier-0 Lyapunov certificate
-against the JAX package on the same inputs.
+"""The port's single-attempt PTC fast pass and tier-0 Lyapunov certificate
+against the JAX package on the same inputs (the multi-attempt solve and
+the rescue ladder: ``tests/test_torch_rescue.py``).
 
 The PTC comparison runs the (18, 24) synthetic mechanism (n_dyn = 16,
 exactly a Pallas bucket) with the JAX package's direction solves forced
@@ -101,12 +102,6 @@ def test_batched_lanes_equal_their_solo_runs():
                                    rtol=1e-9, atol=1e-13)
 
 
-def test_multi_attempt_is_not_ported():
-    with pytest.raises(NotImplementedError, match="rescue"):
-        newton.solve_steady(None, None, None, None,
-                            FAST._replace(max_attempts=2))
-
-
 @pytest.fixture
 def fast_jax_lu(monkeypatch):
     """The JAX package's one-shot LU solve with its loops not unrolled:
@@ -166,3 +161,42 @@ def test_lyapunov_matches_jax_on_random_matrices(m, fast_jax_lu):
     want = _jax_lyap(Js, Q, tols)
     assert np.array_equal(got, want)
     assert got.any() and not got.all()
+
+
+@pytest.mark.parametrize("use_abi", [False, True], ids=["plain", "abi"])
+def test_ptc_march_is_the_references_given_its_rate_constants(use_abi):
+    """Synthetic (10, 5), 8 lanes, T 450-650 K (D = 8 under ABI): with the
+    JAX package's rate constants in both packages, the port's PTC fast
+    pass is bit for bit the JAX package's -- states, residuals, step
+    counts and exit pseudo-steps. It needs the net rates and the
+    tolerance scale rounded once, as XLA's CPU backend rounds its fused
+    multiply-adds; a last-bit difference there grows along the march to
+    ~1e-5 in a lane's final residual and exit pseudo-step."""
+    from pycatkin_tpu.frontend import abi as jabi
+    from pycatkin_tpu_torch.frontend import abi
+
+    sj, cj, sp, ct = _carry(synthetic_system(10, 5, seed=0), 8,
+                            np.linspace(450.0, 650.0, 8))
+    if use_abi:
+        jlow, low = jabi.lower_spec(sj), abi.lower_spec(sp)
+        sj, cj = jlow.spec_padded, jlow.pad_conditions(cj)
+        sp, ct = low, engine.conditions_to(low.pad_conditions(ct), "cpu")
+    kf, kr, _ = jax.jit(jax.vmap(
+        lambda c: jengine.rate_constants(sj, c)))(cj)
+    groups = jnp.asarray(np.asarray(sj.groups))[:, np.asarray(
+        sj.dynamic_indices)]
+
+    def attempt(c, kf1, kr1):
+        fs, dyn, yb = jengine._dynamic_fscale(sj, c, kf1, kr1)
+        return jnewton._ptc_attempt(fs, jax.jacfwd(lambda z: fs(z)[0]),
+                                    yb[dyn], groups, JFAST)
+    want = jax.jit(jax.vmap(attempt))(cj, kf, kr)
+    ds = engine.bind(sp, "cpu")
+    cl = engine.closures(ds, ct, torch.tensor(np.asarray(kf)),
+                         torch.tensor(np.asarray(kr)))
+    got = newton._ptc_attempt(cl.fscale, cl.jac,
+                              cl.y_base[..., ds.dyn].contiguous(),
+                              ds.groups_dyn, FAST)
+    for name, a, b in zip(("x", "residual", "steps", "dt_exit", "chords"),
+                          got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b)), name

@@ -12,8 +12,9 @@ TOF and activity must fall within the repo's cross-kernel envelope,
 rtol 1e-5 / atol 1e-12 (docs/perf_pallas_linalg.md), wherever the
 reference itself reproduces to that envelope. On the flagship's
 Gauss-Jordan route it does not: the stock JAX program moves its own
-converged states by ~1e-4 when T changes by one ulp (the explicit
-inverse amplifies last-bit noise; ROADMAP Queue C). There the port is
+converged states by ~1e-4 when T changes by one ulp (its one-shot
+Gauss-Jordan direction solves, which the port's take bit for bit, carry
+last-bit noise along the march; ROADMAP Queue C). There the port is
 held to the envelope with both packages on their LU route, and on the
 stock route to twice the reference's own one-ulp spread."""
 
