@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
 1. device: the card's name and power limit (nvidia-smi) and the build time;
 2. kernel check: every kernel (``lu_factor``, ``lu_solve``,
    ``factor_solve``) against its plain PyTorch version on the card, at
-   n = 16, 32 (the warp tier), 9, 21, 64 (the resident tier, the matrix
+   n = 16, 32 (the warp tier), 9, 21, 54 (the unpadded transient's stage
+   matrices), 64 (the resident tier, the matrix
    in shared memory, three or more lanes an SM), 112 (the resident tier
    with two lanes an SM, on 256 threads), 128, 165 (the panel tier, the
    matrix in device memory, where one lane alone fits an SM's shared
@@ -91,13 +92,33 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    attempts) and key i of ``split(prng_key(0), L)``, then ``tof`` and
    ``activity_from_tof(|tof|)``, on the unpadded flagship, 65,536 lanes,
    T 450-650 K; walls, the attempt histogram, and 256 lanes held to the
-   CPU through phase 3's one-ulp gate.
+   CPU through phase 3's one-ulp gate;
+12. the transient: ``batch_transient`` on the flagship mechanism, T
+   400-800 K, save grid 0 then 1e-10 .. 1e8 s, three paths
+   (:data:`TRANSIENT_PATHS`): TR-BDF2 unpadded (stage matrices n = 54,
+   ``lu_factor`` resident tier and tiled ``lu_solve``), TR-BDF2 with
+   ``abi=True`` (n = 128: panel-tier ``lu_factor``, tiled ``lu_solve``)
+   and ESDIRK4 with ``abi=True``; each twice (first and warm) with walls,
+   lanes/s, save points/s, peak memory, host syncs, lane-steps accepted,
+   rejected and ended steady, ``ok``, the lanes the Newton finish took
+   and rescued, the quarantine count and the launches, then a profile of
+   the first steps of its first save interval (per step: wall, device
+   busy time, device kernels; the unpadded path also at 512 lanes). 16
+   lanes of each
+   re-run on the CPU (:data:`TRANSIENT_SUBSET`; the CPU's time there is
+   the slowest lane's step count, not the lane count) in worker
+   processes started with the script: ``ok`` and the diagnostics
+   (failed and quarantined lanes) equal, ``ys`` within rtol 1e-5 / atol
+   1e-12; a lane outside that re-runs in a worker with T up, T down and
+   kscale up by one ulp, and must lie within twice their spread, by
+   :data:`TRANSIENT_GATE_BY` seconds after the start.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
 line with one row per kernel per path that launches it (``path``:
 ``certificate``, ``abi_flagship``, ``abi_certificate``, ``rescue_abi``,
-``large`` or ``large_abi``), the
+``large``, ``large_abi``, ``transient``, ``transient_abi`` or
+``transient_esdirk4``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA card it exits 1 and
 prints no result.
@@ -106,6 +127,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -121,7 +143,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # FP64 units x 1.98 GHz boost clock (the data sheet's 34 TFLOP/s counts
 # an FMA as two operations).
 FP64_VECTOR_INSTR_PER_S = 132 * 64 * 1.98e9
-SIZES = (9, 16, 21, 32, 64, 112, 128, 165, 170, 200, 256, 512)
+SIZES = (9, 16, 21, 32, 54, 64, 112, 128, 165, 170, 200, 256, 512)
 KERNEL_TOL = 1e-12
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
@@ -133,6 +155,26 @@ RESCUE_OPTS = dict(max_steps=6, max_attempts=3)   # phase 10's options
 ENTRY_LANES = 65536      # phase 11, the flagship entry
 SUBSET = 256             # lanes of each path re-run on the CPU
 LARGE_SUBSET = 16        # the same for the large path
+# Phase 12: (kernels-line path, mechanism, lanes, abi, method) of each
+# transient path, all over T 400-800 K and transient_grid(), in this
+# order (the slowest CPU re-run, transient_abi's, gets the longest
+# overlap with the card). The TR-BDF2 paths are cut from 65,536 and
+# 16,384 lanes (warm walls 131.5 s and 205.7 s on an H100 80GB HBM3 at
+# 700 W) to where a full-width step's device time falls to its ~12 ms
+# of host time; below that the wall is the slowest lane's ~5,900 (or
+# ~5,100) steps times the host time and does not shrink (PERF.md).
+TRANSIENT_PATHS = (
+    ("transient", (24, 32), 16384, False, "trbdf2"),
+    ("transient_esdirk4", (24, 32), 4096, True, "esdirk4"),
+    ("transient_abi", (24, 32), 4096, True, "trbdf2"),
+)
+TRANSIENT_SUBSET = 16    # lanes of each transient path re-run on the CPU
+# Seconds after the start by which a transient path's one-ulp CPU re-runs
+# (of its lanes outside the envelope, if any) must be back: the kernels
+# line still needs ~40 s, and the whole script must end within 1,200 s.
+TRANSIENT_GATE_BY = 1100.0
+STEP_PROFILE_STEPS = 20  # steps of the profiled first save interval
+NARROW_LANES = 512       # the unpadded transient's step profile, narrow
 REPS = 20                # timed calls per kernel
 ENVELOPE = dict(rtol=1e-5, atol=1e-12)
 # The large path's envelope. On an H100 its states sit 4.3e-11 from the
@@ -148,7 +190,13 @@ LARGE_ENVELOPE = dict(rtol=1e-5, atol=1e-9)
 RESIDUAL_SLACK = 1e-3
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase line ends with the seconds since start."""
+    if msg.startswith("phase"):
+        msg += f" [t {time.perf_counter() - START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -309,7 +357,10 @@ def time_lu(cl, n: int, L: int, device) -> list:
     LU, perm = cl.lu_factor(A)
     LUr, permr = cl.lu_factor_ref(A)
     lu_err = float(torch.max(torch.abs(LU[:-1] - LUr[:-1])))
-    assert torch.equal(perm[:-1], permr[:-1])
+    assert torch.equal(perm[:-1], permr[:-1]), f"lu_factor n={n} x {L}: perm"
+    assert torch.equal(LU[:-1], LUr[:-1]), \
+        f"lu_factor n={n} x {L}: LU differs from the plain version's " \
+        f"({lu_err})"
     ms = cuda_ms(lambda: cl.lu_factor(A), REPS)
     hus = host_us(lambda: cl.lu_factor(A), REPS)
     plain = cuda_ms(lambda: cl.lu_factor_ref(A), 2)
@@ -323,6 +374,8 @@ def time_lu(cl, n: int, L: int, device) -> list:
     x = cl.lu_solve(LU, perm, b)
     xr = cl.lu_solve_ref(LUr, permr, b)
     sol_err = float(torch.max(torch.abs(x[:-1] - xr[:-1])))
+    e = rel_err(x[:-1], xr[:-1])
+    assert e <= KERNEL_TOL, f"lu_solve n={n} x {L}: rel err {e}"
     tLU, tpiv, _ = torch.linalg.lu_factor_ex(A)
     ms = cuda_ms(lambda: cl.lu_solve(LU, perm, b), REPS)
     hus = host_us(lambda: cl.lu_solve(LU, perm, b), REPS)
@@ -346,6 +399,8 @@ def time_factor_solve(cl, n: int, L: int, device) -> dict:
     xf = cl.factor_solve(A, b)
     xfr = cl.factor_solve_ref(A, b)
     fs_err = float(torch.max(torch.abs(xf[:-1] - xfr[:-1])))
+    e = rel_err(xf[:-1], xfr[:-1])
+    assert e <= KERNEL_TOL, f"factor_solve n={n} x {L}: rel err {e}"
     ms = cuda_ms(lambda: cl.factor_solve(A, b), REPS)
     hus = host_us(lambda: cl.factor_solve(A, b), REPS)
     plain = cuda_ms(lambda: cl.factor_solve_ref(A, b), 2)
@@ -395,20 +450,22 @@ def check_prng(device) -> None:
 
 
 def counted(run):
-    """``run()`` with the launch counters and the sync counter zeroed
-    just before and read just after; returns (output, counts, syncs,
-    wall seconds)."""
+    """``run()`` with the launch counters and the sync and step counters
+    zeroed just before and read just after; returns (output, counts,
+    syncs, wall seconds)."""
     import torch
     from pycatkin_tpu_torch.ops import cuda_linalg as cl
-    from pycatkin_tpu_torch.solvers import newton
+    from pycatkin_tpu_torch.solvers import newton, ode
     torch.cuda.synchronize()
     cl.reset_launches()
     newton.reset_syncs()
+    ode.reset_counters()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, dict(cl.LAUNCHES), sum(newton.SYNCS.values()), wall
+    syncs = sum(newton.SYNCS.values()) + sum(ode.SYNCS.values())
+    return out, dict(cl.LAUNCHES), syncs, wall
 
 
 def fused(spec, conds, mask, device):
@@ -499,23 +556,31 @@ def cpu_normalized_residual(spec, conds, x):
     return newton._rnorm(F, gross, newton.SolverOptions())
 
 
+def one_ulp_conditions(sub) -> tuple:
+    """``sub`` with T up, T down and kscale up by one ulp."""
+    ulp = 1.0 + 2.0 ** -52
+    return (sub._replace(T=sub.T * ulp), sub._replace(T=sub.T / ulp),
+            sub._replace(kscale=sub.kscale * ulp))
+
+
 def one_ulp_gate(label, spec, sub, rerun, ref, out, idx, fields,
-                 envelope=None) -> str:
+                 envelope=None, steady=True, runs=None) -> str:
     """The gate for a route whose states the reference itself does not
     reproduce to the rtol 1e-5 / atol 1e-12 envelope: the CPU lanes
     ``sub`` run three more times through ``rerun`` with T up, T down and
-    kscale up by one ulp. Each field (name -> getter of an output) of the
-    card's lanes ``idx`` of ``out`` must lie within twice the largest
-    spread of those runs around ``ref`` or, given an ``envelope``, within
-    it; and the card's states (field ``x``: full states ``[L, n_s]``)
-    must pass the solver's convergence test evaluated on the CPU (the
-    standard of tests/test_torch_sweep.py::test_flagship_matches_stock_jax).
-    Returns the log text."""
+    kscale up by one ulp (:func:`one_ulp_conditions`; or ``runs``, those
+    three outputs already computed). Each field (name -> getter of an
+    output) of the card's lanes ``idx`` of ``out`` must lie within twice
+    the largest spread of those runs around ``ref`` or, given an
+    ``envelope``, within it; and the card's states (field ``x``: full
+    states ``[L, n_s]``) must pass the solver's convergence test
+    evaluated on the CPU (the standard of
+    tests/test_torch_sweep.py::test_flagship_matches_stock_jax; not for
+    ``steady=False``, a transient's trajectories). Returns the log
+    text."""
     import torch
-    ulp = 1.0 + 2.0 ** -52
-    runs = [rerun(c) for c in (
-        sub._replace(T=sub.T * ulp), sub._replace(T=sub.T / ulp),
-        sub._replace(kscale=sub.kscale * ulp))]
+    if runs is None:
+        runs = [rerun(c) for c in one_ulp_conditions(sub)]
     parts = []
     for name, get in fields.items():
         r0 = get(ref)
@@ -535,6 +600,8 @@ def one_ulp_gate(label, spec, sub, rerun, ref, out, idx, fields,
             held = f" ({frac:.3g} of the envelope)"
         parts.append(f"{name} max gap {gap:.3e}{held} vs one-ulp spread "
                      f"{spread:.3e}")
+    if not steady:
+        return "; ".join(parts)
     x = fields["x"](out)[idx].cpu()
     rn = float(cpu_normalized_residual(spec, sub, x).max())
     assert rn <= 1.0 + RESIDUAL_SLACK, \
@@ -879,13 +946,223 @@ def entry_path(spec, base, mask, device) -> None:
         f"{gate}")
 
 
-def main() -> int:
+def transient_grid():
+    """Phase 12's save grid: 0, then 19 points from 1e-10 to 1e8 s (the
+    span of tests/test_ode_parity.py's DMTM check)."""
     import numpy as np
+    return np.concatenate([[0.0], np.logspace(-10, 8, 19)])
+
+
+def transient_cpu_rerun(shape, lanes: int, abi: bool, method: str,
+                        miss=None):
+    """Phase 12's CPU re-run of a transient path, in a worker process:
+    :data:`TRANSIENT_SUBSET` evenly spaced lanes of the path's ``lanes``
+    through the plain kernel versions, one intra-op thread. Returns
+    ``(ys, ok, diagnostics, wall seconds, steps)`` as numpy arrays, a
+    dict and numbers. Given ``miss`` (positions in the subset), runs
+    instead those lanes with T up, T down and kscale up by one ulp
+    (:func:`one_ulp_conditions`), as one batch of ``3 len(miss)``
+    lanes, and returns their three ``ys``."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    # Yield the cores to the main process: the card's host-bound steps.
+    os.nice(10)
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import ode
+    spec, base = synthetic_spec(*shape, seed=0)
+    _, sub = cpu_subset(lanes_over_T(base, lanes), TRANSIENT_SUBSET)
+    opts = ode.ODEOptions(method=method)
+    if miss is not None:
+        part = type(sub)(*(np.asarray(f)[miss] for f in sub))
+        joint = type(sub)(*(np.concatenate(fs) for fs in
+                            zip(*one_ulp_conditions(part))))
+        ys, _ = batch.batch_transient(spec, joint, transient_grid(),
+                                      opts=opts, abi=abi, device="cpu")
+        return np.split(ys.numpy(), 3)
+    ode.reset_counters()
+    diag = {}
+    t0 = time.perf_counter()
+    ys, ok = batch.batch_transient(spec, sub, transient_grid(), opts=opts,
+                                   abi=abi, device="cpu", diagnostics=diag)
+    return (ys.numpy(), ok.numpy(), diag, time.perf_counter() - t0,
+            ode.SYNCS["ode_active"])
+
+
+def start_transient_cpu_reruns():
+    """Start phase 12's CPU re-runs, one worker process each (spawned, so
+    they hold no CUDA context), to run while the card works. Returns the
+    pool and one pending result per path."""
+    pool = multiprocessing.get_context("spawn").Pool(len(TRANSIENT_PATHS))
+    pending = [pool.apply_async(transient_cpu_rerun, (shape, L, abi, method))
+               for _, shape, L, abi, method in TRANSIENT_PATHS]
+    return pool, pending
+
+
+def transient_step_profile(spec, conds, abi, opts, device, label) -> str:
+    """Phase 12: the first :data:`STEP_PROFILE_STEPS` steps of a transient
+    path's first save interval, [0, 1e-7] s, on its own lanes under
+    torch.profiler (after one unprofiled run of them): per batch step
+    the wall, the device's busy time and the number of device kernels.
+    (Few steps: the profiler's own processing grows with its events.)
+    Returns the log text."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.frontend import abi as _abi
+    from pycatkin_tpu_torch.solvers import ode
+    if abi:
+        spec = _abi.lower_spec(spec)
+        conds = spec.pad_conditions(conds)
+    ds = engine.bind(spec, device)
+    ct = engine.conditions_to(conds, device)
+    lanes = engine._transient_closures(ds, ct, steady_rel=opts.steady_rel)
+    L = len(ct.T)
+    t0 = torch.zeros(L, dtype=torch.float64, device=device)
+    h0 = torch.full((L,), opts.h0, dtype=torch.float64, device=device)
+    capped = opts._replace(max_steps=STEP_PROFILE_STEPS)
+    run = lambda: ode._advance_to(lanes, ct.y0.contiguous(), t0, 1e-7, h0,
+                                  capped)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = counted(run)
+    steps = ode.SYNCS["ode_active"] - 1
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return (f"{label}: the first {steps} steps of [0, 1e-7] s at {L} "
+            f"lanes under the "
+            f"profiler: {wall / steps * 1e3:.2f} ms a step, device busy "
+            f"{busy / steps:.2f} ms a step ({100.0 * busy / wall / 1e3:.1f} "
+            f"% of wall), {len(kernels) / steps:.0f} device kernels a step")
+
+
+def transient_path(path, shape, L, abi, method, device, pool,
+                   pending) -> tuple:
+    """Phase 12: ``batch_transient`` of synthetic ``shape`` seed 0 over
+    ``L`` lanes at T 400-800 K and :func:`transient_grid`, twice (first
+    and warm), with walls, rates, peak memory, host syncs, steps, the
+    finish and the launches; then the CPU re-run of its
+    :data:`TRANSIENT_SUBSET` lanes (``pending``): ``ok`` and the
+    diagnostics equal, ``ys`` within rtol 1e-5 / atol 1e-12; the lanes
+    outside it re-run on the CPU (in ``pool``) with T up, T down and
+    kscale up by one ulp, and must lie within twice the largest spread
+    of those runs, by :data:`TRANSIENT_GATE_BY` seconds after the start.
+    Returns the launch counts of the first run and the stage matrices'
+    size n."""
+    import numpy as np
+    import torch
+    from pycatkin_tpu_torch.frontend import abi as _abi
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import ode
+    spec, base = synthetic_spec(*shape, seed=0)
+    conds = lanes_over_T(base, L)
+    grid = transient_grid()
+    opts = ode.ODEOptions(method=method)
+    n = _abi.lower_spec(spec).static.n_species if abi else spec.n_species
+    run = lambda diag: batch.batch_transient(
+        spec, conds, grid, opts=opts, abi=abi, device=device,
+        diagnostics=diag)
+    diag = {}
+    torch.cuda.reset_peak_memory_stats()
+    (ys, ok), counts, syncs, wall = counted(lambda: run(diag))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = ode.step_counts()
+    finish = (ode.FINISH["lanes"], int(ode.FINISH["rescued"]))
+    _, wcounts, wsyncs, warm = counted(lambda: run({}))
+    assert wcounts == counts and wsyncs == syncs, (wcounts, wsyncs)
+    profiles = [transient_step_profile(spec, conds, abi, opts, device,
+                                       f"phase 12 {path} step profile")]
+    if not abi:
+        small = lanes_over_T(synthetic_spec(*shape, seed=0)[1],
+                             NARROW_LANES)
+        profiles.append(transient_step_profile(
+            spec, small, abi, opts, device,
+            f"phase 12 {path} step profile, narrow"))
+    log(f"phase 12 {path}: synthetic{shape} seed 0 {method}, "
+        f"{'abi=True' if abi else 'unpadded'} (stage matrices n = {n}), "
+        f"{L} lanes T 400-800 K, {len(grid)} save times 0, 1e-10 .. 1e8 s "
+        f"| ok {int(ok.sum())} | finish: {finish[0]} lanes in, "
+        f"{finish[1]} rescued | quarantined {diag['quarantined']} | steps "
+        f"(lane-steps) "
+        f"accepted {steps['accepted']} rejected {steps['rejected']} steady "
+        f"{steps['steady']} | host syncs {syncs} | wall first {wall:.3f} s "
+        f"warm {warm:.3f} s, {L / warm:.1f} lanes/s, "
+        f"{L * len(grid) / warm:.1f} save points/s, peak memory "
+        f"{peak:.1f} MiB | launches {counts}")
+    for text in profiles:
+        log(text)
+    assert counts["lu_factor"] > 0 and counts["lu_solve"] > 0, counts
+    assert ys.shape == (L, len(grid), spec.n_species), ys.shape
+    assert diag["quarantined"] == 0 and bool(torch.isfinite(ys).all())
+    assert diag["failed"] == int((~ok).sum())
+
+    idx, sub = cpu_subset(conds, TRANSIENT_SUBSET)
+    ys_c, ok_c, diag_c, cwall, csyncs = pending.get()
+    ys_c, ok_c = torch.as_tensor(ys_c), torch.as_tensor(ok_c)
+    ys_i, ok_i = ys[idx].cpu(), ok[idx].cpu()
+    assert torch.equal(ok_i, ok_c), f"phase 12 {path} CPU parity: ok differs"
+    finite = torch.all(torch.isfinite(ys_i[:, -1]), dim=-1)
+    assert diag_c == {"failed": int((~(ok_i & finite)).sum()),
+                      "quarantined": int((~finite).sum())}, \
+        f"phase 12 {path} CPU parity: diagnostics {diag_c}"
+    dx, frac = envelope_gap(ys_i, ys_c)
+    head = (f"phase 12 {path} CPU parity: {TRANSIENT_SUBSET} lanes re-run "
+            f"on the CPU through the plain versions ({cwall:.1f} s, "
+            f"{csyncs} steps, in a worker process while the card ran): ok "
+            f"and diagnostics equal, max |dy| {dx:.3e} ({frac:.3g} of the "
+            f"rtol 1e-5 / atol 1e-12 envelope)")
+    share = torch.abs(ys_i - ys_c) / (ENVELOPE["atol"]
+                                      + ENVELOPE["rtol"] * torch.abs(ys_c))
+    miss = np.flatnonzero((~(share <= 1.0)).flatten(1).any(dim=1).numpy())
+    if miss.size == 0:
+        log(head)
+        return counts, n
+    # The lanes outside the envelope, with T up, T down and kscale up by
+    # one ulp, as one batch in a worker process.
+    left = TRANSIENT_GATE_BY - (time.perf_counter() - START)
+    job = pool.apply_async(transient_cpu_rerun, (shape, L, abi, method, miss))
+    try:
+        runs = job.get(timeout=max(left, 1.0))
+    except multiprocessing.TimeoutError:
+        raise AssertionError(
+            f"{head}: {miss.size} lanes outside it, and their one-ulp "
+            f"re-runs on the CPU did not finish by t = "
+            f"{TRANSIENT_GATE_BY:.0f} s") from None
+    part = type(sub)(*(np.asarray(f)[miss] for f in sub))
+    gate = one_ulp_gate(f"phase 12 {path}", spec, part, None,
+                        (ys_c[miss],), (ys, ok), idx[miss],
+                        {"ys": lambda o: o[0]}, steady=False,
+                        runs=[(torch.as_tensor(r),) for r in runs])
+    log(f"{head}; its {miss.size} lanes outside it with T up, T down, "
+        f"kscale up one ulp: {gate}")
+    return counts, n
+
+
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    import pycatkin_tpu_torch  # noqa: F401  (fails outside the repo)
+    pool, pending = start_transient_cpu_reruns()
+    try:
+        return run_phases(pool, pending)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(pool, pending) -> int:
+    import numpy as np
+    import torch
     from pycatkin_tpu_torch import engine
     from pycatkin_tpu_torch.frontend import abi
     from pycatkin_tpu_torch.models.synthetic import synthetic_spec
@@ -1042,6 +1319,13 @@ def main() -> int:
     # -- phase 11: the flagship entry as written ---------------------
     entry_path(spec, base, mask, device)
 
+    # -- phase 12: the transient, three paths --------------------------
+    tcounts = {}
+    for (path, shape, Lt, use_abi, method), res in zip(TRANSIENT_PATHS,
+                                                        pending):
+        tcounts[path] = transient_path(path, shape, Lt, use_abi, method,
+                                       device, pool, res) + (Lt,)
+
     # -- phase 9, kernels line: one row per kernel per path ---------------
     m = deflation_basis_for_spec(cspec).shape[1]
     assert m * m > linalg.UNROLL_MAX, m
@@ -1058,6 +1342,9 @@ def main() -> int:
     timed += [("large", gcounts, r) for r in time_lu(cl, g_dyn, Lg, device)]
     timed += [("large_abi", hcounts, r)
               for r in time_lu(cl, glow.static.n_dynamic, Lg, device)]
+    # The transient's stage matrices: n_s unpadded, S through abi=True.
+    for path, (tc, nt, Lt) in tcounts.items():
+        timed += [(path, tc, r) for r in time_lu(cl, nt, Lt, device)]
     replaces = {
         "lu_factor": "pycatkin_tpu/ops/pallas_linalg.py:204",
         "lu_solve": "pycatkin_tpu/ops/pallas_linalg.py:219",

@@ -6,6 +6,8 @@ Composition of the kernel layers for a batch of conditions:
     reaction_energies  <- stoichiometric sums
     rate_constants     <- ops.rates dispatch
     steady_state       <- solvers.newton (PTC or LM, random restarts)
+    transient          <- solvers.ode (TR-BDF2 or ESDIRK4), then a Newton
+                          finish by steady_state
     steady_jacobian    <- torch.func.jacfwd of the dynamic residual
     tof / activity     <- net rates of the selected steps
 
@@ -26,8 +28,9 @@ from .constants import LOG_H_OVER_KB, R, bartoPa, eVtokJ, kB
 from .frontend.abi import AbiLowered
 from .frontend.spec import REACTOR_CSTR, Conditions, ModelSpec
 from .ops import linalg, network, rates, thermo
-from .solvers import newton
+from .solvers import newton, ode
 from .solvers.newton import SolverOptions, SteadyStateResults
+from .solvers.ode import ODEOptions
 
 eVtoJmol = eVtokJ * 1.0e3
 
@@ -213,6 +216,83 @@ def _static(ds: DeviceSpec) -> dict:
                          if ds.reactor_type == REACTOR_CSTR else 0.0))
 
 
+class FullState(NamedTuple):
+    """Per-lane operands of the full-state reactor right-hand side."""
+    kf: torch.Tensor               # [L, n_r]
+    kr: torch.Tensor               # [L, n_r]
+    sigma_over_bar: torch.Tensor   # [L]
+    inflow: torch.Tensor           # [L, n_s]
+
+    def lanes(self, idx) -> "FullState":
+        return FullState(*(a[idx] for a in self))
+
+
+def full_state_operands(ds: DeviceSpec, cond: Conditions, kf=None,
+                        kr=None) -> FullState:
+    """The :class:`FullState` of every lane (rate constants computed
+    unless given)."""
+    if kf is None:
+        kf, kr, _ = rate_constants(ds, cond)
+    rt = reactor_terms(ds, cond)
+    return FullState(kf, kr, rt.sigma_over_bar, rt.inflow)
+
+
+def _full_rhs(ds: DeviceSpec, ops: FullState, y, with_gross: bool):
+    kw = dict(sigma_over_bar=ops.sigma_over_bar, inflow=ops.inflow,
+              **_static(ds))
+    if with_gross:
+        return network.reactor_rhs_and_scale(y, ops.kf, ops.kr, **kw)
+    return network.reactor_rhs(y, ops.kf, ops.kr, **kw)
+
+
+def full_jacobian(ds: DeviceSpec, ops: FullState, y):
+    """``[L, n_s, n_s]`` Jacobian of the full-state right-hand side:
+    ``torch.func.jacfwd`` of the per-lane right-hand side under
+    ``torch.func.vmap`` over lanes."""
+    st = _static(ds)
+
+    def rhs_one(y1, kf1, kr1, sob1, inf1):
+        return network.reactor_rhs(y1, kf1, kr1, sigma_over_bar=sob1,
+                                   inflow=inf1, **st)
+    return torch.func.vmap(torch.func.jacfwd(rhs_one))(y, *ops)
+
+
+def make_rhs_and_scale(ds: DeviceSpec, cond: Conditions, kf=None, kr=None):
+    """``(rhs, rhs_and_scale)``: lane-batched closures ``y [L, n_s] ->
+    dy/dt`` and ``-> (dy/dt, gross)`` over one set of reactor operands,
+    so the steadiness oracles see exactly the model being integrated."""
+    ops = full_state_operands(ds, cond, kf, kr)
+    return (lambda y: _full_rhs(ds, ops, y, False),
+            lambda y: _full_rhs(ds, ops, y, True))
+
+
+def make_rhs(ds: DeviceSpec, cond: Conditions, kf=None, kr=None):
+    """The reactor ODE right-hand side ``y [L, n_s] -> dy/dt``."""
+    return make_rhs_and_scale(ds, cond, kf, kr)[0]
+
+
+def get_dydt(ds: DeviceSpec, cond: Conditions, y):
+    """dy/dt of the full solution vectors ``y [L, n_s]``."""
+    return make_rhs(ds, cond)(y)
+
+
+def get_jacobian(ds: DeviceSpec, cond: Conditions, y):
+    """d(dy/dt)/dy at the full states ``y [L, n_s]``, ``[L, n_s, n_s]``
+    (forward autodiff)."""
+    return full_jacobian(ds, full_state_operands(ds, cond), y)
+
+
+def reaction_rates_at(ds: DeviceSpec, cond: Conditions, y, kf=None,
+                      kr=None):
+    """Per-reaction forward and reverse rates ``([L, n_r], [L, n_r])`` at
+    the compositions ``y [L, n_s]``."""
+    if kf is None:
+        kf, kr, _ = rate_constants(ds, cond)
+    fwd, rev, _ = network.net_rates(y, kf, kr, reac_idx=ds.reac_idx,
+                                    prod_idx=ds.prod_idx, is_gas=ds.is_gas)
+    return fwd, rev
+
+
 def compose_state(ds: DeviceSpec, y_base, x):
     """The full state: ``y_base`` with its dynamic entries set to ``x``."""
     return torch.cat([y_base, x], dim=-1)[..., ds.dyn_src]
@@ -316,6 +396,95 @@ def check_stability(ds: DeviceSpec, cond: Conditions, y_full,
     (numpy); returns a numpy bool array ``[L]``."""
     J = steady_jacobian(ds, cond, torch.as_tensor(y_full)[..., ds.dyn])
     return newton.jacobian_eigenvalues_stable(J.cpu().numpy(), pos_tol)
+
+
+def _transient_closures(ds: DeviceSpec, cond: Conditions,
+                        steady_rel: float = ODEOptions().steady_rel,
+                        kf=None, kr=None):
+    """``lanes(idx) -> ode.OdeFns``: the integrator's closures over the
+    lanes ``idx`` (None: all lanes), with two oracles on the net and
+    gross fluxes of each lane. ``steady`` (freeze): ``|net| <= 8 eps
+    gross`` everywhere, the f64 cancellation floor of the flux sums, no
+    absolute term (a metastable plateau has tiny ``|net|``).
+    ``relaxed`` (accelerate): ``|net| <= steady_rel gross`` everywhere,
+    the steady verdict's tolerance, which waives the noise-dominated
+    local-error test while the state keeps evolving."""
+    ops = full_state_operands(ds, cond, kf, kr)
+    floor = 8.0 * float(torch.finfo(torch.float64).eps)
+
+    def lanes(idx=None):
+        o = ops if idx is None else ops.lanes(idx)
+
+        def oracles(y):
+            net, gross = _full_rhs(ds, o, y, True)
+            a = torch.abs(net)
+            return (net, torch.all(a <= floor * gross, dim=-1),
+                    torch.all(a <= steady_rel * gross, dim=-1))
+        return ode.OdeFns(f=lambda y: _full_rhs(ds, o, y, False),
+                          jac=lambda y: full_jacobian(ds, o, y),
+                          oracles=oracles)
+    return lanes
+
+
+def transient_state(ds: DeviceSpec, cond: Conditions, state, save_ts,
+                    opts: ODEOptions = ODEOptions()):
+    """Advance a transient carry (``ode.init_state``) of every lane
+    through the save times ``save_ts``. Returns ``(state, ys)``."""
+    lanes = _transient_closures(ds, cond, steady_rel=opts.steady_rel)
+    return ode.integrate_state(lanes, state, save_ts, opts)
+
+
+def transient_finish(ds: DeviceSpec, cond: Conditions, y_last, ok,
+                     sopts: SolverOptions = SolverOptions()):
+    """Newton finish of the lanes that did not reach the end of the
+    grid: where relaxed stepping ran out of ``max_steps`` but the state
+    already satisfies the steady verdict, land on the attractor with the
+    multi-attempt steady solve from ``y_last`` (key ``prng_key(0)`` on
+    every lane), and keep it only if it converged within 5e-2 of
+    ``y_last`` in every entry (a different root keeps the failure
+    flag). Returns ``(y_final, ok)``.
+
+    The JAX package runs the solve on every lane and keeps it where
+    ``~ok & good``, then returns ``ok | good``; neither touches a lane
+    that is ``ok``, so only the other lanes are solved here (picking
+    them is one counted sync)."""
+    ode.SYNCS["finish_lanes"] += 1
+    idx = np.flatnonzero(~ok.cpu().numpy())
+    if idx.size == 0:
+        return y_last, ok
+    sel = torch.as_tensor(idx, device=y_last.device)
+    y_sel = y_last[sel]
+    sub = lane_subset(cond, sel)
+    res = steady_state(ds, sub, x0=y_sel[:, ds.dyn], opts=sopts)
+    _, _, relaxed = _transient_closures(
+        ds, sub, steady_rel=sopts.rate_tol_rel)(None).oracles(y_sel)
+    near = torch.amax(torch.abs(res.x - y_sel), dim=-1) <= 5.0e-2
+    good = res.success & relaxed & near
+    ode.FINISH["lanes"] += int(idx.size)
+    ode.FINISH["rescued"] = ode.FINISH["rescued"] + good.sum()
+    return (y_last.index_copy(0, sel, torch.where(good[:, None], res.x,
+                                                  y_sel)),
+            ok.index_copy(0, sel, good))
+
+
+def finish_options(opts: ODEOptions) -> SolverOptions:
+    """The Newton finish's options: the verdict judged at the
+    integration's own ``steady_rel``."""
+    return SolverOptions(rate_tol_rel=opts.steady_rel)
+
+
+def transient(ds: DeviceSpec, cond: Conditions, save_ts,
+              opts: ODEOptions = ODEOptions()):
+    """Integrate every lane's reactor ODEs from ``cond.y0`` over the save
+    times ``save_ts`` (``save_ts[0]`` the initial time), then the Newton
+    finish (:func:`transient_finish`) of the last point. Returns ``(ys
+    [L, len(save_ts), n_s], ok [L])``."""
+    lanes = _transient_closures(ds, cond, steady_rel=opts.steady_rel)
+    ys, ok = ode.integrate(lanes, cond.y0.contiguous(), save_ts, opts)
+    y_fin, ok = transient_finish(ds, cond, ys[:, -1], ok,
+                                 sopts=finish_options(opts))
+    ys[:, -1] = y_fin
+    return ys, ok
 
 
 def tof(ds: DeviceSpec, cond: Conditions, y, tof_mask):

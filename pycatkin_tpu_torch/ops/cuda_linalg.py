@@ -201,8 +201,7 @@ def lu_factor_ref(A):
         perm[lanes, k] = pp
         perm[lanes, p] = pk
         f = A[:, k + 1:, k] / A[:, k, k, None]
-        A[:, k + 1:, k + 1:] = (A[:, k + 1:, k + 1:]
-                                - f[:, :, None] * A[:, k, None, k + 1:])
+        A[:, k + 1:, k + 1:] -= f[:, :, None] * A[:, k, None, k + 1:]
         A[:, k + 1:, k] = f
     return A, perm.to(torch.int32)
 
@@ -215,13 +214,14 @@ def lu_solve_ref(LU, perm, b):
     y = b[:, :, None] if vec else b
     n, k = y.shape[1], y.shape[2]
     idx = perm.to(torch.int64)[:, :, None].expand(-1, -1, k)
-    y = torch.gather(y, 1, idx).clone()
-    for i in range(n):
-        s = (LU[:, i, :i, None] * y[:, :i]).sum(dim=1)
-        y[:, i] = y[:, i] - s
+    y = torch.gather(y, 1, idx)
+    LUk = LU[:, :, :, None]
+    for i in range(1, n):
+        y[:, i] -= (LUk[:, i, :i] * y[:, :i]).sum(dim=1)
     for i in range(n - 1, -1, -1):
-        s = (LU[:, i, i + 1:, None] * y[:, i + 1:]).sum(dim=1)
-        y[:, i] = (y[:, i] - s) / LU[:, i, i, None]
+        if i < n - 1:
+            y[:, i] -= (LUk[:, i, i + 1:] * y[:, i + 1:]).sum(dim=1)
+        y[:, i] /= LUk[:, i, i]
     return y[:, :, 0] if vec else y
 
 

@@ -9,9 +9,11 @@ the tier a TPU resolves to; the path names are the JAX seam's:
   :mod:`cuda_linalg`, ``lu_factor`` + ``lu_solve`` to factor once and
   solve many, ``factor_solve`` for a one-shot solve;
 - ``"gauss"``: any other n <= :data:`UNROLL_MAX` -> row-equilibrated
-  Gauss-Jordan in plain PyTorch, one :func:`gauss_solve` per right-hand
-  side (factor-once reuse too, as the JAX package's direction solve
-  takes it: an explicit inverse and matvecs round differently);
+  Gauss-Jordan in plain PyTorch: :func:`gauss_solve` for a one-shot
+  solve, and to factor once the explicit inverse :func:`inv`, each
+  right-hand side then a matvec (the JAX package's ``_make_inv_solve``;
+  the Newton direction solve keeps one :func:`gauss_solve` per
+  right-hand side, see ``solvers.newton._direction_factor``);
 - ``"lu"``: anything larger -> the same :mod:`cuda_linalg` LU (the
   JAX package's sequential XLA LU does the same first-max
   partial-pivot arithmetic as its Pallas kernels).
@@ -59,20 +61,32 @@ def _lu_solve_once(A, b):
     return cuda_linalg.factor_solve(A, b.contiguous())
 
 
+def _make_inv_solve(M):
+    """Factor once by the explicit Gauss-Jordan inverse; each solve is
+    then the matvec ``Minv @ r`` (``r``: ``[L, n]`` or ``[L, n, k]``)."""
+    Minv = inv(M)
+
+    def solve(r):
+        if r.dim() == Minv.dim() - 1:
+            return torch.matmul(Minv, r[..., None])[..., 0]
+        return torch.matmul(Minv, r)
+    return solve
+
+
 def select_solver(n: int) -> SolverChoice:
     """The solve path for systems of size ``n`` (see the module doc)."""
     n = int(n)
     if n in KERNEL_BUCKETS:
         return SolverChoice("pallas", _make_lu_solve, _lu_solve_once)
     if n <= UNROLL_MAX:
-        return SolverChoice("gauss", lambda M: lambda r: gauss_solve(M, r),
-                            gauss_solve)
+        return SolverChoice("gauss", _make_inv_solve, gauss_solve)
     return SolverChoice("lu", _make_lu_solve, _lu_solve_once)
 
 
 def make_msolve(M):
-    """A closure solving ``M x = r`` for each right-hand side it is
-    given (``M`` factored once on the LU paths)."""
+    """Factor ``M`` once and return a closure solving ``M x = r`` for
+    each right-hand side it is given: the LU kernels on the bucket sizes
+    and above :data:`UNROLL_MAX`, the explicit inverse below."""
     return select_solver(M.shape[-1]).make_solve(M)
 
 

@@ -52,9 +52,13 @@ def net_rates(y, kf, kr, *, reac_idx, prod_idx, is_gas):
     return kf * pf, rev, torch.addcmul(-rev, kf, pf)
 
 
-def reactor_rhs_and_scale(y, kf, kr, *, reac_idx, prod_idx, is_gas,
-                          stoich, is_adsorbate, reactor_type,
-                          sigma_over_bar, inv_tau, inflow):
+def reactor_rhs(y, kf, kr, **reactor):
+    """dy/dt alone: :func:`reactor_rhs_and_scale` without the gross
+    flux (the same arithmetic for the rate of change)."""
+    return _reactor(y, kf, kr, False, **reactor)[0]
+
+
+def reactor_rhs_and_scale(y, kf, kr, **reactor):
     """``(dy/dt, gross)``: the reactor ODE right-hand side and the
     per-species GROSS flux ``|S| @ (|fwd| + |rev|)`` (plus |flow| terms)
     under the same reactor row transforms -- the steadiness yardstick of
@@ -63,17 +67,30 @@ def reactor_rhs_and_scale(y, kf, kr, *, reac_idx, prod_idx, is_gas,
     - InfiniteDilution: gas rows are clamped (multiplied by 0).
     - CSTR: gas rows are scaled by sigma/bartoPa (``sigma_over_bar``,
       lane-shaped) and gain the flow term (inflow - y)/tau.
-    """
+
+    Keywords: ``reac_idx``, ``prod_idx``, ``is_gas``, ``stoich``,
+    ``is_adsorbate``, ``reactor_type``, ``sigma_over_bar``, ``inv_tau``,
+    ``inflow``."""
+    return _reactor(y, kf, kr, True, **reactor)
+
+
+def _reactor(y, kf, kr, with_gross, *, reac_idx, prod_idx, is_gas,
+             stoich, is_adsorbate, reactor_type, sigma_over_bar, inv_tau,
+             inflow):
     fwd, rev, net = net_rates(y, kf, kr, reac_idx=reac_idx,
                               prod_idx=prod_idx, is_gas=is_gas)
     chem = net @ stoich.T
-    gross = (torch.abs(fwd) + torch.abs(rev)) @ torch.abs(stoich).T
+    gross = (torch.abs(fwd) + torch.abs(rev)) @ torch.abs(stoich).T \
+        if with_gross else None
     if reactor_type == REACTOR_ID:
-        return chem * is_adsorbate, gross * is_adsorbate
+        return chem * is_adsorbate, \
+            None if gross is None else gross * is_adsorbate
     sob = sigma_over_bar.reshape(sigma_over_bar.shape + (1,))
     row_scale = torch.where(is_adsorbate > 0, torch.ones_like(chem), sob)
     zero = torch.zeros_like(chem)
     flow = torch.where(is_gas > 0, (inflow - y) * inv_tau, zero)
+    if gross is None:
+        return chem * row_scale + flow, None
     gflow = torch.where(is_gas > 0, (inflow + torch.abs(y)) * inv_tau, zero)
     return chem * row_scale + flow, gross * row_scale + gflow
 

@@ -22,12 +22,15 @@ settle the ambiguous lanes by a host eigensolve, or hand the sweep to
 re-check, the stability verdict and up to three rounds of unseeded
 re-solves of the lanes it demotes, then TOF and activity.
 :func:`batch_steady_state`, :func:`continuation_sweep` and
-:func:`stability_mask` are the JAX package's entries of the same names.
+:func:`stability_mask` are the JAX package's entries of the same names,
+and so is :func:`batch_transient`, the lane-batched transient
+(``engine.transient``) with its diagnostics bundle.
 """
 
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,6 +39,8 @@ from .. import engine
 from ..frontend import abi as _abi
 from ..frontend.spec import Conditions, ModelSpec
 from ..ops import prng
+from ..solvers import ode
+from ..solvers.ode import ODEOptions
 from ..solvers.newton import (LYAPUNOV_MAX_DIM, STRATEGY_CODES,
                               SolverOptions, SteadyStateResults,
                               deflation_basis_for_spec,
@@ -671,3 +676,43 @@ def continuation_sweep(spec: ModelSpec, conds: Conditions, order,
     if low is not None:
         out["y"] = low.unpad_y(out["y"])
     return out
+
+
+def batch_transient(spec: ModelSpec, conds: Conditions, save_ts,
+                    opts: ODEOptions = ODEOptions(), mesh=None,
+                    chunk: int = 8, abi: bool = False, device=None,
+                    diagnostics: Optional[dict] = None):
+    """Integrate every lane's transient over the save grid ``save_ts``
+    (``save_ts[0]`` the initial time) and finish it by Newton, as the
+    JAX package's fused transient does. Returns ``(ys [lanes, t, n_s],
+    ok [lanes])`` on the device.
+
+    Given a dict ``diagnostics``, fills it with the sweep's diagnostics
+    bundle (``packed_sweep_diagnostics``), pulled by one sync:
+    ``failed``, the lanes not ``ok`` or with a non-finite last point,
+    and ``quarantined``, the lanes with a non-finite last point (the
+    JAX package reports that count as a degradation event; the port has
+    no event sink yet).
+
+    ``abi=True`` lowers the mechanism into its ABI bucket first (the
+    JAX package's ``PYCATKIN_ABI=1``), runs the padded system, whose
+    stage matrices are then of the bucket's size S, and strips the pad
+    species from ``ys``. ``chunk`` has no effect, as on the JAX
+    package's default (fused) route; ``mesh`` must be None.
+    ``device=None`` runs on the CUDA card; pass ``"cpu"`` for the
+    CPU."""
+    _no_mesh("batch_transient", mesh)
+    low = _abi.maybe_lower(spec) if abi else None
+    if low is not None:
+        spec, conds = low, low.pad_conditions(conds)
+    ds, conds, _ = _bind(spec, conds, None, device)
+    ys, ok = engine.transient(ds, conds, save_ts, opts)
+    if diagnostics is not None:
+        finite = torch.all(torch.isfinite(ys[:, -1, :]), dim=-1)
+        bundle = packed_sweep_diagnostics(ok & finite, ~finite)
+        ode.SYNCS["transient_bundle"] += 1
+        failed, quarantined = bundle[:2].tolist()
+        diagnostics.update(failed=failed, quarantined=quarantined)
+    if low is not None:
+        ys = low.unpad_y(ys)
+    return ys, ok

@@ -123,14 +123,19 @@ def _direction_factor(A):
     """Factor the batched PTC matrices ``A [L, n, n]`` once and return the
     solve closure (chord steps reuse it) -- the one direction-solve site,
     routed by :func:`linalg.select_solver` as the JAX package's
-    ``_direction_factor`` routes it: off the bucket sizes at n <= 48 one
-    Gauss-Jordan solve of ``A`` per right-hand side, else the
-    ``lu_factor`` + ``lu_solve`` kernels (their plain versions on the
-    CPU). The JAX package's ``opts`` argument only chooses between two
-    forms of its LU route, ``lu_solve(*lu_factor(A), b)`` per solve or
-    one factorization reused, which give the same bits; the port always
+    ``_direction_factor`` routes it: on the bucket sizes and above n =
+    48 the ``lu_factor`` + ``lu_solve`` kernels (their plain versions on
+    the CPU), off the buckets at n <= 48 one Gauss-Jordan solve of ``A``
+    per right-hand side (not the explicit inverse of
+    :func:`linalg.make_msolve`, whose matvecs round differently). The
+    JAX package's ``opts`` argument only chooses between two forms of
+    its LU route, ``lu_solve(*lu_factor(A), b)`` per solve or one
+    factorization reused, which give the same bits; the port always
     factors once."""
-    return linalg.make_msolve(A)
+    choice = linalg.select_solver(A.shape[-1])
+    if choice.path == "gauss":
+        return lambda b: choice.solve(A, b)
+    return choice.make_solve(A)
 
 
 def _direction_solve(A, b):

@@ -425,3 +425,56 @@ def test_demote_loop_on_the_card_matches_the_cpu(device):
     assert int(cpu["lane_telemetry"][0, 3]) == newton.STRATEGY_CODES["demote"]
     assert bool(cpu["success"].all()) and bool(cpu["stable"].all())
     assert torch.allclose(gpu["y"].cpu(), cpu["y"], rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("max_steps", [4000, 5], ids=["whole", "finish"])
+@pytest.mark.parametrize("use_abi", [False, True], ids=["unpadded", "abi"])
+def test_transient_on_the_card_matches_the_cpu(device, use_abi, max_steps):
+    """``batch_transient`` on synthetic (12, 14) seed 7, 4 lanes at T
+    480-545 K, grid ``[0] + logspace(-9, -2, 9)``: unpadded, the stage
+    matrices (n_s = 24) take the explicit Gauss-Jordan inverse and launch
+    no kernel; through ``abi=True`` (S = 32) every step launches
+    ``lu_factor`` and 13 ``lu_solve``. With the default 4,000 steps an
+    interval every lane ends ``ok``; with 5 (``"finish"``) no lane
+    reaches a save time, so all 4 go through the Newton finish (at D = 8
+    through ``abi=True``, the Gauss-Jordan route), which rescues none.
+    ``ok``, the diagnostics and the finish's lane count equal the CPU's;
+    ``ys`` within rtol 1e-5 / atol 1e-12 of the CPU's, or within twice
+    the CPU's own spread under a one-ulp change of T or kscale."""
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import ode
+
+    spec, base = synthetic_spec(12, 14, seed=7)
+    conds = batch.broadcast_conditions(base, 4)._replace(
+        T=np.linspace(480.0, 545.0, 4))
+    grid = np.concatenate([[0.0], np.logspace(-9, -2, 9)])
+    opts = ode.ODEOptions(max_steps=max_steps)
+
+    def run(c, dev, diag=None):
+        ode.reset_counters()
+        out = batch.batch_transient(spec, c, grid, opts=opts, abi=use_abi,
+                                    device=dev, diagnostics=diag)
+        return out + (ode.FINISH["lanes"],)
+
+    cl.reset_launches()
+    diag, diag_c = {}, {}
+    ys, ok, finished = run(conds, device, diag)
+    torch.cuda.synchronize()
+    steps = ode.SYNCS["ode_active"]
+    if use_abi:
+        assert cl.LAUNCHES["lu_factor"] > 0
+        assert cl.LAUNCHES["lu_solve"] == 13 * cl.LAUNCHES["lu_factor"]
+        assert cl.LAUNCHES["lu_factor"] <= steps
+    else:
+        assert set(cl.LAUNCHES.values()) == {0}
+    ys_c, ok_c, finished_c = run(conds, "cpu", diag_c)
+    assert torch.equal(ok.cpu(), ok_c)
+    assert bool(ok_c.all() if max_steps == 4000 else ~ok_c.any())
+    assert finished == finished_c == (0 if max_steps == 4000 else 4)
+    assert diag == diag_c == {"failed": int((~ok_c).sum()),
+                              "quarantined": 0}
+    assert ys.shape == ys_c.shape == (4, len(grid), spec.n_species)
+    if not torch.allclose(ys.cpu(), ys_c, rtol=1e-5, atol=1e-12):
+        _hold("ys", ys, ys_c, [run(c, "cpu")[0]
+                               for c in _one_ulp_runs(conds)])

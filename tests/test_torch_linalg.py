@@ -22,8 +22,10 @@ import torch
 from pycatkin_tpu import precision
 from pycatkin_tpu.ops import linalg as jlinalg
 from pycatkin_tpu.ops import pallas_linalg as plk
+from pycatkin_tpu.solvers import newton as jnewton
 from pycatkin_tpu_torch.ops import cuda_linalg as cl
 from pycatkin_tpu_torch.ops import linalg
+from pycatkin_tpu_torch.solvers import newton
 
 TOL = 1e-12
 LANES = 8
@@ -165,22 +167,40 @@ def test_select_solver_policy(monkeypatch):
 
 @pytest.mark.parametrize("n", [5, 21, 48])
 def test_gauss_jordan_route_matches_jax(n):
-    """Below 49, off the buckets: the explicit inverse is the JAX
-    package's ``inv`` and the factor-once solve its direction solve, one
-    ``gauss_solve`` per right-hand side, both bit for bit (the same
-    arithmetic, each update rounded once), and no kernel is launched."""
+    """Below 49, off the buckets: ``make_msolve`` is the JAX package's,
+    the explicit inverse (bit for bit its ``inv``) and then one matvec
+    per right-hand side, which XLA's CPU backend and ``torch.matmul``
+    sum in different orders: each entry within two n-term summation
+    error bounds, ``2 n eps (|Minv| @ |r|)``. The PTC direction solve
+    (``newton._direction_factor``) keeps the JAX package's own branch,
+    one ``gauss_solve`` per right-hand side, bit for bit, and no kernel
+    is launched."""
     A, b = _systems(n, seed=11)
     A *= 10.0 ** np.random.default_rng(n).uniform(-12, 12, (LANES, n, 1))
     cl.reset_launches()
-    inv_j = jax.jit(jax.vmap(jlinalg.inv))(jnp.asarray(A))
+    Aj = jnp.asarray(A)
+    inv_j = jax.jit(jax.vmap(jlinalg.inv))(Aj)
     assert np.array_equal(linalg.inv(_t(A)).numpy(), np.asarray(inv_j))
     assert linalg.select_solver(n).path == "gauss"
     B = np.stack([b, 2.0 * b], axis=-1)
     solve = linalg.make_msolve(_t(A))
+    direction = newton._direction_factor(_t(A))
+    absinv = np.abs(np.asarray(inv_j))
+    # The JAX package's make_msolve on this path is the inverse, then
+    # ``Minv @ r`` (its matvec is taken on the inverse computed above).
+    assert jlinalg.select_solver(n).make_solve is jlinalg._make_inv_solve
+    matvec = jax.jit(jax.vmap(lambda Mi, r: Mi @ r))
     for rhs in (b, B):
-        want = jax.jit(jax.vmap(jlinalg.gauss_solve))(jnp.asarray(A),
-                                                      jnp.asarray(rhs))
-        assert np.array_equal(solve(_t(rhs)).numpy(), np.asarray(want))
+        rj = jnp.asarray(rhs)
+        want = np.asarray(matvec(inv_j, rj))
+        r2 = rhs if rhs.ndim == 3 else rhs[..., None]
+        bound = 2.0 * n * np.finfo(np.float64).eps * (absinv @ np.abs(r2))
+        got = solve(_t(rhs)).numpy()
+        assert got.shape == want.shape
+        assert np.all(np.abs(got - want) <= bound.reshape(want.shape))
+        want_d = jax.jit(jax.vmap(lambda M, r: jnewton._direction_factor(
+            M, jnewton.SolverOptions())(r)))(Aj, rj)
+        assert np.array_equal(direction(_t(rhs)).numpy(), np.asarray(want_d))
     assert cl.LAUNCHES == {"lu_factor": 0, "lu_solve": 0, "factor_solve": 0}
 
 
