@@ -56,7 +56,8 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    check_stability=False)`` (S = 512, D = 256, the LU route on the
    panel tier). The tier-2 host eigensolve at n = 256 is left
    out: it is host time this phase does not measure. 16 lanes of each
-   re-run on the CPU: verdicts equal; states, TOF and activity within
+   re-run on the CPU (in worker processes started with the script):
+   verdicts equal; states, TOF and activity within
    rtol 1e-5 / atol 1e-9 (:data:`LARGE_ENVELOPE`), and the card's
    states pass the CPU's convergence test. The log line also gives the
    reference's own spread under a one-ulp change of T or kscale, which
@@ -71,7 +72,8 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    vector floor (see :func:`vector_floor_ms`), and the wrapper's host
    time per launch (checks, output allocation, the C entry's choice of
    tier and plan, the launch); then, on no path, the three kernels at
-   n = 512 and ``factor_solve`` at n = 165, 256;
+   n = 512 and ``factor_solve`` at n = 256 (phase 13b gives n = 165
+   its path);
 10. rescue path: ``sweep_steady_state(..., opts=SolverOptions(max_steps=6,
    max_attempts=3), abi=True, check_stability=True)`` on the ABI
    flagship, 65,536 lanes, T 400-800 K: the 6-step cap (the JAX
@@ -111,14 +113,36 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    (failed and quarantined lanes) equal, ``ys`` within rtol 1e-5 / atol
    1e-12; a lane outside that re-runs in a worker with T up, T down and
    kscale up by one ulp, and must lie within twice their spread, by
-   :data:`TRANSIENT_GATE_BY` seconds after the start.
+   :data:`TRANSIENT_GATE_BY` seconds after the start;
+13. degree of rate control (``engine.drc`` / ``engine.drc_fd``, the
+   TOF of the last reaction, from the states of the path's own sweep, as
+   ``presets._sweep`` passes them): 13a the implicit adjoint on the
+   flagship's 65,536 lanes from phase 3's states (n = 21, Gauss-Jordan:
+   no kernel may launch); 13b the implicit adjoint on the large
+   mechanism's 2,048 lanes from phase 7's states, which must launch
+   ``factor_solve`` at n = 165 exactly three times (two polish steps and
+   the adjoint solve) beside the steady solve's ``lu_factor`` /
+   ``lu_solve``; 13c finite differences on 1,024 of the flagship's lanes
+   (66,560 steady solves in one call; no kernel may launch). Each twice
+   (first and warm) with walls, lanes/s, peak memory, host syncs, NaN
+   lanes and launches. On the card, every lane with finite xi holds the
+   sum rule |sum_r xi_r - 1| <= 1e-6 in 13a and 13b (scaling every k
+   scales the TOF of the infinite-dilution reactor by the same factor)
+   with the term the solve's residual adds to it (see :func:`sum_rule`).
+   :data:`SUBSET` lanes of 13a re-run on the CPU, and
+   :data:`DRC_SUBSET` lanes each of 13b and 13c in worker processes,
+   from the states of their sweeps: NaN lanes and ``ok`` equal, xi
+   within rtol 1e-6 / atol 1e-9 (:data:`DRC_ENVELOPE`), else within
+   twice the CPU's own spread with T up, T down and kscale up by one
+   ulp. Phase 7's CPU comparisons wait until after phase 11, phase
+   12's last until after phase 13.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
 line with one row per kernel per path that launches it (``path``:
 ``certificate``, ``abi_flagship``, ``abi_certificate``, ``rescue_abi``,
-``large``, ``large_abi``, ``transient``, ``transient_abi`` or
-``transient_esdirk4``), the
+``large``, ``large_abi``, ``transient``, ``transient_abi``,
+``transient_esdirk4`` or ``drc_large``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA card it exits 1 and
 prints no result.
@@ -174,6 +198,10 @@ TRANSIENT_SUBSET = 16    # lanes of each transient path re-run on the CPU
 # line still needs ~40 s, and the whole script must end within 1,200 s.
 TRANSIENT_GATE_BY = 1100.0
 STEP_PROFILE_STEPS = 20  # steps of the profiled first save interval
+DRC_FD_LANES = 1024      # phase 13c: 1,024 x (2 n_r + 1) = 66,560 solves
+DRC_SUBSET = 16          # lanes of 13b and 13c re-run in a worker
+DRC_ENVELOPE = dict(rtol=1e-6, atol=1e-9)
+SUM_RULE_TOL = 1e-6
 NARROW_LANES = 512       # the unpadded transient's step profile, narrow
 REPS = 20                # timed calls per kernel
 ENVELOPE = dict(rtol=1e-5, atol=1e-12)
@@ -612,16 +640,17 @@ def one_ulp_gate(label, spec, sub, rerun, ref, out, idx, fields,
 
 
 def fused_cpu_parity(label, spec, conds, mask, out, hold_states,
-                     subset: int = SUBSET, envelope=None):
+                     subset: int = SUBSET, envelope=None, cpu=None):
     """``subset`` lanes of a ``fused_sweep`` path re-run on the CPU
     through the plain versions: verdicts equal. Where ``hold_states``,
     states within the envelope; else :func:`one_ulp_gate` (with
-    ``envelope``) on states, TOF and activity."""
+    ``envelope``) on states, TOF and activity. ``cpu``: those re-runs
+    already made (:func:`large_cpu_rerun`)."""
     import torch
     from pycatkin_tpu_torch.parallel import batch
     idx, sub = cpu_subset(conds, subset)
     rerun = lambda c: batch.fused_sweep(spec, c, mask, device="cpu")
-    out_cpu = rerun(sub)
+    out_cpu = rerun(sub) if cpu is None else cpu[0]
     v, vc = verdicts(out), verdicts(out_cpu)
     for name in v:
         assert torch.equal(v[name][idx].cpu(), vc[name]), \
@@ -637,25 +666,27 @@ def fused_cpu_parity(label, spec, conds, mask, out, hold_states,
     fields = {"x": lambda o: o[0].x, "tof": lambda o: o[4],
               "activity": lambda o: o[5]}
     gate = one_ulp_gate(label, spec, sub, rerun, out_cpu, out, idx, fields,
-                        envelope)
+                        envelope, runs=None if cpu is None else cpu[1:])
     log(f"{head}, and with T up, T down, kscale up one ulp: verdicts equal, "
         f"max |dx| {dx:.3e} ({frac:.3g} of the rtol 1e-5 / atol 1e-12 "
         f"envelope); {gate}")
 
 
 def abi_cpu_parity(label, spec, conds, mask, out, check_stability=True,
-                   hold_states=True, subset: int = SUBSET, envelope=None):
+                   hold_states=True, subset: int = SUBSET, envelope=None,
+                   cpu=None):
     """``subset`` lanes of an ABI path re-run on the CPU through the plain
     versions: verdict masks equal. Where ``hold_states``, states within
     the envelope; else :func:`one_ulp_gate` (with ``envelope``) on
-    states, TOF and activity."""
+    states, TOF and activity. ``cpu``: those re-runs already made
+    (:func:`large_cpu_rerun`)."""
     import torch
     from pycatkin_tpu_torch.parallel import batch
     idx, sub = cpu_subset(conds, subset)
     rerun = lambda c: batch.sweep_steady_state(
         spec, c, mask, check_stability=check_stability, abi=True,
         device="cpu")
-    ref = rerun(sub)
+    ref = rerun(sub) if cpu is None else cpu[0]
     names = ("success", "stable", "quarantined") if check_stability \
         else ("success", "quarantined")
     for name in names:
@@ -675,7 +706,7 @@ def abi_cpu_parity(label, spec, conds, mask, out, check_stability=True,
     fields = {"x": lambda o: o["y"], "tof": lambda o: o["tof"],
               "activity": lambda o: o["activity"]}
     gate = one_ulp_gate(label, spec, sub, rerun, ref, out, idx, fields,
-                        envelope)
+                        envelope, runs=None if cpu is None else cpu[1:])
     log(f"{head}, and with T up, T down, kscale up one ulp: "
         f"{', '.join(names)} equal, max |dy| {dx:.3e} ({frac:.3g} of the "
         f"envelope), max TOF rel diff {dtof:.3e}; {gate}")
@@ -992,14 +1023,45 @@ def transient_cpu_rerun(shape, lanes: int, abi: bool, method: str,
             ode.SYNCS["ode_active"])
 
 
+def large_cpu_rerun(use_abi: bool):
+    """Phase 7's CPU re-run, in a worker process: :data:`LARGE_SUBSET`
+    lanes of the large path (``fused_sweep``, or ``sweep_steady_state(
+    abi=True, check_stability=False)``) through the plain versions, as
+    they are and with T up, T down and kscale up by one ulp. It needs no
+    result of the card, so it starts with the script. Returns the four
+    outputs."""
+    import torch
+    torch.set_num_threads(2)
+    os.nice(10)
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    spec, base = synthetic_spec(200, 200, seed=0)
+    mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
+    _, sub = cpu_subset(lanes_over_T(base, LARGE_LANES), LARGE_SUBSET)
+    if use_abi:
+        rerun = lambda c: batch.sweep_steady_state(
+            spec, c, mask, check_stability=False, abi=True, device="cpu")
+    else:
+        rerun = lambda c: batch.fused_sweep(spec, c, mask, device="cpu")
+    return [rerun(c) for c in (sub,) + one_ulp_conditions(sub)]
+
+
 def start_transient_cpu_reruns():
-    """Start phase 12's CPU re-runs, one worker process each (spawned, so
-    they hold no CUDA context), to run while the card works. Returns the
-    pool and one pending result per path."""
-    pool = multiprocessing.get_context("spawn").Pool(len(TRANSIENT_PATHS))
+    """Start the CPU re-runs of phase 12's paths and of phase 7's two,
+    one worker process each (spawned, so they hold no CUDA context), to
+    run while the card works; phase 13's re-runs follow on the first
+    workers to finish. Returns the pool, one pending result per phase-12
+    path and phase 7's two."""
+    pool = multiprocessing.get_context("spawn").Pool(len(TRANSIENT_PATHS)
+                                                     + 2)
     pending = [pool.apply_async(transient_cpu_rerun, (shape, L, abi, method))
                for _, shape, L, abi, method in TRANSIENT_PATHS]
-    return pool, pending
+    large = [pool.apply_async(large_cpu_rerun, (use_abi,))
+             for use_abi in (False, True)]
+    return pool, pending, large
 
 
 def transient_step_profile(spec, conds, abi, opts, device, label) -> str:
@@ -1053,8 +1115,9 @@ def transient_path(path, shape, L, abi, method, device, pool,
     outside it re-run on the CPU (in ``pool``) with T up, T down and
     kscale up by one ulp, and must lie within twice the largest spread
     of those runs, by :data:`TRANSIENT_GATE_BY` seconds after the start.
-    Returns the launch counts of the first run and the stage matrices'
-    size n."""
+    Returns the launch counts of the first run, the stage matrices' size
+    n and the CPU comparison as a function to call (the last path's is
+    called after phase 13, whose card work overlaps its re-run's tail)."""
     import numpy as np
     import torch
     from pycatkin_tpu_torch.frontend import abi as _abi
@@ -1103,46 +1166,190 @@ def transient_path(path, shape, L, abi, method, device, pool,
     assert diag["quarantined"] == 0 and bool(torch.isfinite(ys).all())
     assert diag["failed"] == int((~ok).sum())
 
-    idx, sub = cpu_subset(conds, TRANSIENT_SUBSET)
-    ys_c, ok_c, diag_c, cwall, csyncs = pending.get()
-    ys_c, ok_c = torch.as_tensor(ys_c), torch.as_tensor(ok_c)
-    ys_i, ok_i = ys[idx].cpu(), ok[idx].cpu()
-    assert torch.equal(ok_i, ok_c), f"phase 12 {path} CPU parity: ok differs"
-    finite = torch.all(torch.isfinite(ys_i[:, -1]), dim=-1)
-    assert diag_c == {"failed": int((~(ok_i & finite)).sum()),
-                      "quarantined": int((~finite).sum())}, \
-        f"phase 12 {path} CPU parity: diagnostics {diag_c}"
-    dx, frac = envelope_gap(ys_i, ys_c)
-    head = (f"phase 12 {path} CPU parity: {TRANSIENT_SUBSET} lanes re-run "
-            f"on the CPU through the plain versions ({cwall:.1f} s, "
-            f"{csyncs} steps, in a worker process while the card ran): ok "
-            f"and diagnostics equal, max |dy| {dx:.3e} ({frac:.3g} of the "
-            f"rtol 1e-5 / atol 1e-12 envelope)")
-    share = torch.abs(ys_i - ys_c) / (ENVELOPE["atol"]
-                                      + ENVELOPE["rtol"] * torch.abs(ys_c))
-    miss = np.flatnonzero((~(share <= 1.0)).flatten(1).any(dim=1).numpy())
-    if miss.size == 0:
-        log(head)
-        return counts, n
-    # The lanes outside the envelope, with T up, T down and kscale up by
-    # one ulp, as one batch in a worker process.
-    left = TRANSIENT_GATE_BY - (time.perf_counter() - START)
-    job = pool.apply_async(transient_cpu_rerun, (shape, L, abi, method, miss))
-    try:
-        runs = job.get(timeout=max(left, 1.0))
-    except multiprocessing.TimeoutError:
-        raise AssertionError(
-            f"{head}: {miss.size} lanes outside it, and their one-ulp "
-            f"re-runs on the CPU did not finish by t = "
-            f"{TRANSIENT_GATE_BY:.0f} s") from None
-    part = type(sub)(*(np.asarray(f)[miss] for f in sub))
-    gate = one_ulp_gate(f"phase 12 {path}", spec, part, None,
-                        (ys_c[miss],), (ys, ok), idx[miss],
-                        {"ys": lambda o: o[0]}, steady=False,
-                        runs=[(torch.as_tensor(r),) for r in runs])
-    log(f"{head}; its {miss.size} lanes outside it with T up, T down, "
-        f"kscale up one ulp: {gate}")
-    return counts, n
+    def parity() -> None:
+        idx, sub = cpu_subset(conds, TRANSIENT_SUBSET)
+        ys_c, ok_c, diag_c, cwall, csyncs = pending.get()
+        ys_c, ok_c = torch.as_tensor(ys_c), torch.as_tensor(ok_c)
+        ys_i, ok_i = ys[idx].cpu(), ok[idx].cpu()
+        assert torch.equal(ok_i, ok_c), \
+            f"phase 12 {path} CPU parity: ok differs"
+        finite = torch.all(torch.isfinite(ys_i[:, -1]), dim=-1)
+        assert diag_c == {"failed": int((~(ok_i & finite)).sum()),
+                          "quarantined": int((~finite).sum())}, \
+            f"phase 12 {path} CPU parity: diagnostics {diag_c}"
+        dx, frac = envelope_gap(ys_i, ys_c)
+        head = (f"phase 12 {path} CPU parity: {TRANSIENT_SUBSET} lanes "
+                f"re-run on the CPU through the plain versions ({cwall:.1f} "
+                f"s, {csyncs} steps, in a worker process while the card "
+                f"ran): ok and diagnostics equal, max |dy| {dx:.3e} "
+                f"({frac:.3g} of the rtol 1e-5 / atol 1e-12 envelope)")
+        share = torch.abs(ys_i - ys_c) / (
+            ENVELOPE["atol"] + ENVELOPE["rtol"] * torch.abs(ys_c))
+        miss = np.flatnonzero(
+            (~(share <= 1.0)).flatten(1).any(dim=1).numpy())
+        if miss.size == 0:
+            log(head)
+            return
+        # The lanes outside the envelope, with T up, T down and kscale up
+        # by one ulp, as one batch in a worker process.
+        left = TRANSIENT_GATE_BY - (time.perf_counter() - START)
+        job = pool.apply_async(transient_cpu_rerun,
+                               (shape, L, abi, method, miss))
+        try:
+            runs = job.get(timeout=max(left, 1.0))
+        except multiprocessing.TimeoutError:
+            raise AssertionError(
+                f"{head}: {miss.size} lanes outside it, and their one-ulp "
+                f"re-runs on the CPU did not finish by t = "
+                f"{TRANSIENT_GATE_BY:.0f} s") from None
+        part = type(sub)(*(np.asarray(f)[miss] for f in sub))
+        gate = one_ulp_gate(f"phase 12 {path}", spec, part, None,
+                            (ys_c[miss],), (ys, ok), idx[miss],
+                            {"ys": lambda o: o[0]}, steady=False,
+                            runs=[(torch.as_tensor(r),) for r in runs])
+        log(f"{head}; its {miss.size} lanes outside it with T up, T down, "
+            f"kscale up one ulp: {gate}")
+    return counts, n, parity
+
+
+def drc_run(spec, conds, x0, mode, device):
+    """``engine.drc`` (``mode="implicit"``) or ``engine.drc_fd``
+    (``"fd"``) of the TOF of the last reaction, over ``conds`` from the
+    dynamic states ``x0``; returns ``(xi, ok)`` (``ok`` all True for the
+    implicit route)."""
+    import torch
+    from pycatkin_tpu_torch import engine
+    ds = engine.bind(spec, device)
+    ct = engine.conditions_to(conds, device)
+    x0 = torch.as_tensor(x0, dtype=torch.float64, device=device)
+    terms = [spec.rnames[-1]]
+    if mode == "fd":
+        return engine.drc_fd(ds, ct, terms, x0=x0)
+    xi = engine.drc(ds, ct, terms, x0=x0)
+    return xi, torch.ones(xi.shape[0], dtype=torch.bool, device=device)
+
+
+def drc_cpu_rerun(shape, lanes: int, idx, x0, mode: str):
+    """Phase 13's CPU re-run, in a worker process: the lanes ``idx`` of
+    synthetic ``shape`` over ``lanes`` lanes at T 400-800 K (phase 3's or
+    phase 7's conditions) from the card's states ``x0``, through the plain
+    kernel versions, as they are and with T up, T down and kscale up by
+    one ulp. Returns the four ``(xi, ok)`` as numpy arrays and the wall
+    seconds."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    os.nice(19)
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    spec, base = synthetic_spec(*shape, seed=0)
+    conds = lanes_over_T(base, lanes)
+    sub = type(conds)(*(np.asarray(f)[idx] for f in conds))
+    t0 = time.perf_counter()
+    runs = [tuple(t.numpy() for t in drc_run(spec, c, x0, mode, "cpu"))
+            for c in (sub,) + one_ulp_conditions(sub)]
+    return runs, time.perf_counter() - t0
+
+
+def drc_parity(label, xi, ok, runs) -> str:
+    """The card's ``xi`` / ``ok`` of some lanes against the CPU's
+    ``runs`` of them (:func:`drc_cpu_rerun`): ``ok`` and the NaN lanes
+    equal; the finite xi within :data:`DRC_ENVELOPE`, else within twice
+    the largest spread of the one-ulp runs around the CPU's. Returns the
+    log text."""
+    import torch
+    xi_c, ok_c = (torch.as_tensor(a) for a in runs[0])
+    assert torch.equal(ok.cpu(), ok_c), f"{label} CPU parity: ok differs"
+    fin = torch.isfinite(xi_c).all(dim=1)
+    assert torch.equal(torch.isfinite(xi).all(dim=1).cpu(), fin), \
+        f"{label} CPU parity: the NaN lanes differ"
+    head = (f"ok equal ({int(ok_c.sum())} of {ok_c.numel()}), NaN lanes "
+            f"equal ({int((~fin).sum())})")
+    if not bool(fin.any()):
+        return head + ", no finite lane to compare"
+    a, b = xi.cpu()[fin], xi_c[fin]
+    gap, frac = envelope_gap(a, b, DRC_ENVELOPE)
+    head += (f", xi max gap {gap:.3e} ({frac:.3g} of the rtol 1e-6 / atol "
+             f"1e-9 envelope)")
+    spread = max(float(torch.nan_to_num(
+        (torch.as_tensor(r[0])[fin] - b).abs(), nan=0.0).max())
+        for r in runs[1:])
+    if frac <= 1.0:
+        return f"{head}; the CPU's one-ulp spread {spread:.3e}"
+    assert gap <= 2.0 * spread, \
+        f"{label} CPU parity: xi differs by {gap}, {frac:.3g} of the " \
+        f"envelope, twice the one-ulp spread is {2.0 * spread}"
+    return f"{head}; within twice the CPU's one-ulp spread {spread:.3e}"
+
+
+def sum_rule(label, spec, conds, x0, xi, device) -> None:
+    """The sum rule of the infinite-dilution reactor: scaling every k by
+    the same factor scales the TOF by it, so ``sum_r xi_r = 1`` at the
+    exact steady state. At the computed one the adjoint gives ``sum_r
+    xi_r = 1 - w . F(x*)`` exactly, ``w`` the adjoint vector and ``F(x*)``
+    the residual the polished solve leaves; where the Jacobian is badly
+    conditioned ``|w|`` reaches ~1e16 and that term is not small. So every
+    lane with finite xi must hold the rule with that term within
+    :data:`SUM_RULE_TOL`, and every lane whose term is below 1e-7 the plain
+    rule; the log gives the lanes that hold the plain rule. ``w`` and
+    ``F(x*)`` are recomputed here from the same steady solve."""
+    import torch
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.ops import linalg
+    ds = engine.bind(spec, device)
+    ct = engine.conditions_to(conds, device)
+    x0 = torch.as_tensor(x0, dtype=torch.float64, device=device)
+    mask = torch.as_tensor(engine.tof_mask_for(spec, [spec.rnames[-1]]),
+                           dtype=torch.float64, device=device)
+    with torch.no_grad():
+        xs = engine.make_steady_x(ds, x0=x0)(ct)
+    F = engine._residual(ds, ct, xs)
+    B, M = engine._constrained(ds, engine.steady_jacobian(ds, ct, xs))
+    xg = xs.clone().requires_grad_(True)
+    with torch.enable_grad():
+        y = engine.compose_state(ds, ct.y0, xg)
+        (g,) = torch.autograd.grad(
+            torch.log(engine.tof(ds, ct, y, mask)).sum(), xg)
+    w = linalg.solve(B.mT.contiguous(), g) * (1.0 - M)
+    term = -(w * F).sum(dim=1)
+    fin = torch.isfinite(xi).all(dim=1) & torch.isfinite(term)
+    plain = torch.abs(xi.sum(dim=1) - 1.0)[fin]
+    exact = torch.abs(xi.sum(dim=1) - 1.0 - term)[fin]
+    small = torch.abs(term[fin]) <= 1e-7
+    log(f"{label} sum rule: {int(fin.sum())} lanes with finite xi; "
+        f"|sum_r xi_r - 1| <= {SUM_RULE_TOL:g} on "
+        f"{int((plain <= SUM_RULE_TOL).sum())}, max {float(plain.max()):.3e}; "
+        f"|w . F(x*)| <= 1e-7 on {int(small.sum())}, where the plain rule's "
+        f"max is {float(plain[small].max()) if small.any() else 0.0:.3e}; "
+        f"max |sum_r xi_r - 1 + w . F(x*)| {float(exact.max()):.3e}, max "
+        f"|w| {float(w.abs().max()):.3e}")
+    assert float(exact.max()) <= SUM_RULE_TOL, float(exact.max())
+    assert not small.any() or float(plain[small].max()) <= SUM_RULE_TOL
+
+
+def drc_path(label, spec, conds, x0, mode, device) -> tuple:
+    """Phase 13: one DRC path on the card, twice (first and warm); logs
+    walls, lanes/s, peak memory, host syncs, NaN lanes, the ``ok``
+    count and launches. Returns ``(xi, ok, launch counts)``."""
+    import torch
+    L = len(conds.T)
+    torch.cuda.reset_peak_memory_stats()
+    (xi, ok), counts, syncs, wall = counted(
+        lambda: drc_run(spec, conds, x0, mode, device))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    _, wcounts, _, warm = counted(
+        lambda: drc_run(spec, conds, x0, mode, device))
+    assert wcounts == counts, (wcounts, counts)
+    nan = int((~torch.isfinite(xi).all(dim=1)).sum())
+    solves = L * (2 * spec.n_reactions + 1) if mode == "fd" else L
+    log(f"{label}: {L} lanes ({solves} steady solves), n_dyn "
+        f"{len(spec.dynamic_indices)} | ok {int(ok.sum())} | NaN lanes "
+        f"{nan} | host syncs {syncs} | wall first {wall:.3f} s warm "
+        f"{warm:.3f} s, {L / warm:.1f} lanes/s | peak memory {peak:.1f} "
+        f"MiB | launches {counts}")
+    assert xi.shape == (L, spec.n_reactions), xi.shape
+    return xi, ok, counts
 
 
 def main() -> int:
@@ -1152,15 +1359,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import pycatkin_tpu_torch  # noqa: F401  (fails outside the repo)
-    pool, pending = start_transient_cpu_reruns()
+    pool, pending, large = start_transient_cpu_reruns()
     try:
-        return run_phases(pool, pending)
+        return run_phases(pool, pending, large)
     finally:
         pool.terminate()
         pool.join()
 
 
-def run_phases(pool, pending) -> int:
+def run_phases(pool, pending, large) -> int:
     import numpy as np
     import torch
     from pycatkin_tpu_torch import engine
@@ -1214,6 +1421,13 @@ def run_phases(pool, pending) -> int:
     assert bool(torch.isfinite(res.x[ok]).all())
     assert bool(torch.isfinite(out[5][ok & v["certified"]]).all())
     fused_cpu_parity("phase 3", spec, conds, mask, out, hold_states=False)
+    # Phase 13c's lanes (every 64th) and its CPU re-run of 16 of them.
+    dyn = list(spec.dynamic_indices)
+    fd_idx, fd_conds = cpu_subset(conds, DRC_FD_LANES)
+    fd_sub, _ = cpu_subset(fd_conds, DRC_SUBSET)
+    fd_x0 = out[0].x[torch.as_tensor(fd_idx, device=device)][:, dyn]
+    fd_job = pool.apply_async(drc_cpu_rerun, (
+        (24, 32), L, fd_idx[fd_sub], fd_x0[fd_sub].cpu().numpy(), "fd"))
 
     # -- phase 4: the certificate path ---------------------------------
     cspec, cbase = synthetic_spec(12, 14, seed=0)
@@ -1281,9 +1495,12 @@ def run_phases(pool, pending) -> int:
         f"{gpeak:.1f} MiB | launches {gcounts}")
     assert gcounts["lu_factor"] > 0 and gcounts["lu_solve"] > 0, gcounts
     assert bool(torch.isfinite(gout[0].x[gv["success"]]).all())
-    fused_cpu_parity("phase 7 large", gspec, gconds, gmask, gout,
-                     hold_states=False, subset=LARGE_SUBSET,
-                     envelope=LARGE_ENVELOPE)
+    gdyn = list(gspec.dynamic_indices)
+    g_sub, _ = cpu_subset(gconds, DRC_SUBSET)
+    g_job = pool.apply_async(drc_cpu_rerun, (
+        (200, 200), Lg, g_sub,
+        gout[0].x[torch.as_tensor(g_sub, device=device)][:, gdyn].cpu()
+        .numpy(), "implicit"))
     glow = abi.lower_spec(gspec)
     assert glow.static.n_dynamic == 256
     assert linalg.select_solver(glow.static.n_dynamic).path == "lu"
@@ -1296,9 +1513,6 @@ def run_phases(pool, pending) -> int:
                hwall, hpeak, note=" (check_stability=False: the tier-2 "
                "host eigensolve at n = 256 is host time, not measured here)")
     assert hcounts["lu_factor"] > 0 and hcounts["lu_solve"] > 0, hcounts
-    abi_cpu_parity("phase 7 large ABI", gspec, gconds, gmask, hout,
-                   check_stability=False, hold_states=False,
-                   subset=LARGE_SUBSET, envelope=LARGE_ENVELOPE)
 
     # -- phase 8: where the time goes -----------------------------------
     profile_path(run_abi, L, "ABI flagship")
@@ -1319,12 +1533,64 @@ def run_phases(pool, pending) -> int:
     # -- phase 11: the flagship entry as written ---------------------
     entry_path(spec, base, mask, device)
 
+    # Phase 7's CPU comparisons: their re-runs had phases 8-11 to finish.
+    fused_cpu_parity("phase 7 large", gspec, gconds, gmask, gout,
+                     hold_states=False, subset=LARGE_SUBSET,
+                     envelope=LARGE_ENVELOPE, cpu=large[0].get())
+    abi_cpu_parity("phase 7 large ABI", gspec, gconds, gmask, hout,
+                   check_stability=False, hold_states=False,
+                   subset=LARGE_SUBSET, envelope=LARGE_ENVELOPE,
+                   cpu=large[1].get())
+
     # -- phase 12: the transient, three paths --------------------------
     tcounts = {}
     for (path, shape, Lt, use_abi, method), res in zip(TRANSIENT_PATHS,
                                                         pending):
-        tcounts[path] = transient_path(path, shape, Lt, use_abi, method,
-                                       device, pool, res) + (Lt,)
+        tc, nt, parity = transient_path(path, shape, Lt, use_abi, method,
+                                        device, pool, res)
+        tcounts[path] = (tc, nt, Lt)
+        if path != TRANSIENT_PATHS[-1][0]:
+            parity()
+
+    # -- phase 13: degree of rate control --------------------------------
+    left = lambda: max(TRANSIENT_GATE_BY - (time.perf_counter() - START), 1.0)
+    x3 = out[0].x[:, dyn]
+    xa, oka, ca = drc_path("phase 13a implicit DRC, flagship", spec, conds,
+                           x3, "implicit", device)
+    assert set(ca.values()) == {0}, ca
+    assert bool(oka.all())
+    sum_rule("phase 13a", spec, conds, x3, xa, device)
+    idx, sub = cpu_subset(conds)
+    x0c = x3[torch.as_tensor(idx, device=device)].cpu()
+    t0 = time.perf_counter()
+    runs = [drc_run(spec, c, x0c, "implicit", "cpu")
+            for c in (sub,) + one_ulp_conditions(sub)]
+    log(f"phase 13a CPU parity: {SUBSET} lanes re-run on the CPU, and with "
+        f"T up, T down, kscale up one ulp ({time.perf_counter() - t0:.1f} "
+        f"s): {drc_parity('phase 13a', xa[idx], oka[idx], runs)}")
+
+    xb, okb, cb = drc_path("phase 13b implicit DRC, large", gspec, gconds,
+                           gout[0].x[:, gdyn], "implicit", device)
+    assert cb["factor_solve"] == 3, cb
+    assert bool(okb.all())
+    sum_rule("phase 13b", gspec, gconds, gout[0].x[:, gdyn], xb, device)
+    runs, cwall = g_job.get(timeout=left())
+    gi = torch.as_tensor(g_sub, device=device)
+    log(f"phase 13b CPU parity: {DRC_SUBSET} lanes re-run on the CPU in a "
+        f"worker, and with T up, T down, kscale up one ulp ({cwall:.1f} s): "
+        f"{drc_parity('phase 13b', xb[gi], okb[gi], runs)}")
+
+    xc, okc, cc = drc_path("phase 13c FD DRC, flagship", spec, fd_conds,
+                           fd_x0, "fd", device)
+    assert set(cc.values()) == {0}, cc
+    runs, cwall = fd_job.get(timeout=left())
+    fi = torch.as_tensor(fd_sub, device=device)
+    log(f"phase 13c CPU parity: {DRC_SUBSET} lanes re-run on the CPU in a "
+        f"worker, and with T up, T down, kscale up one ulp ({cwall:.1f} s): "
+        f"{drc_parity('phase 13c', xc[fi], okc[fi], runs)}")
+
+    # Phase 12's last CPU comparison: its re-run had phase 13 to finish.
+    parity()
 
     # -- phase 9, kernels line: one row per kernel per path ---------------
     m = deflation_basis_for_spec(cspec).shape[1]
@@ -1339,12 +1605,18 @@ def run_phases(pool, pending) -> int:
     # lane fails it, the polish rung run n = 32 on all L lanes.
     timed += [("rescue_abi", rcounts, r) for _, c, r in timed
               if c is acounts]
-    timed += [("large", gcounts, r) for r in time_lu(cl, g_dyn, Lg, device)]
+    large_lu = time_lu(cl, g_dyn, Lg, device)
+    timed += [("large", gcounts, r) for r in large_lu]
     timed += [("large_abi", hcounts, r)
               for r in time_lu(cl, glow.static.n_dynamic, Lg, device)]
     # The transient's stage matrices: n_s unpadded, S through abi=True.
     for path, (tc, nt, Lt) in tcounts.items():
         timed += [(path, tc, r) for r in time_lu(cl, nt, Lt, device)]
+    # Phase 13b: the polish and adjoint solves at n = 165, and the steady
+    # solve's LU where it stepped.
+    timed += [("drc_large", cb, r)
+              for r in large_lu + [time_factor_solve(cl, g_dyn, Lg, device)]
+              if cb[r["name"]] > 0]
     replaces = {
         "lu_factor": "pycatkin_tpu/ops/pallas_linalg.py:204",
         "lu_solve": "pycatkin_tpu/ops/pallas_linalg.py:219",
@@ -1369,10 +1641,10 @@ def run_phases(pool, pending) -> int:
             f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it) FP64 "
             f"vector floor {r['vector_floor_ms']:.4f} ms | host "
             f"{r['host_us']:.1f} us a launch")
-    # Shapes on no path: the bucket-512 kernels, factor_solve above 128.
+    # Shapes on no path: the bucket-512 kernels, factor_solve at 256, 512.
     off_path = time_lu(cl, 512, 256, device) + [
         time_factor_solve(cl, n, L_, device)
-        for n, L_ in ((165, Lg), (256, Lg), (512, 256))]
+        for n, L_ in ((256, Lg), (512, 256))]
     for r in off_path:
         log(f"timing {r['name']} (no path): n={r['n']} x {r['lanes']} "
             f"lanes | kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "

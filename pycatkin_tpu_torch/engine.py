@@ -10,6 +10,9 @@ Composition of the kernel layers for a batch of conditions:
                           finish by steady_state
     steady_jacobian    <- torch.func.jacfwd of the dynamic residual
     tof / activity     <- net rates of the selected steps
+    drc / drc_fd       <- the implicit adjoint through the steady state
+                          (a torch.autograd.Function), or central
+                          differences over one batched steady solve
 
 A host :class:`ModelSpec` is moved to the device once by :func:`bind`;
 every function then takes that :class:`DeviceSpec` and a
@@ -461,7 +464,8 @@ def transient_finish(ds: DeviceSpec, cond: Conditions, y_last, ok,
     near = torch.amax(torch.abs(res.x - y_sel), dim=-1) <= 5.0e-2
     good = res.success & relaxed & near
     ode.FINISH["lanes"] += int(idx.size)
-    ode.FINISH["rescued"] = ode.FINISH["rescued"] + good.sum()
+    ode.FINISH["rescued"] = good.sum() + torch.as_tensor(
+        ode.FINISH["rescued"]).to(good.device)
     return (y_last.index_copy(0, sel, torch.where(good[:, None], res.x,
                                                   y_sel)),
             ok.index_copy(0, sel, good))
@@ -527,3 +531,147 @@ def closed_form_jacobian(ds: DeviceSpec, cond: Conditions, x_dyn,
                                  sigma_over_bar=rt.sigma_over_bar,
                                  inflow=rt.inflow, **_static(ds))
     return J[..., ds.dyn, :][..., ds.dyn]
+
+
+# ----------------------------------------------------------------------
+# implicit differentiation through the steady state
+def _residual(ds: DeviceSpec, cond: Conditions, x):
+    """The dynamic residual ``F [L, n_dyn]`` at ``x``, as a function of
+    every float field of ``cond`` (autograd follows all of them)."""
+    kf, kr, _ = rate_constants(ds, cond)
+    return closures(ds, cond, kf, kr).fscale(x)[0]
+
+
+def _constrained(ds: DeviceSpec, J):
+    """``(B, M)``: the residual's Jacobian ``J`` with one row per
+    conservation group replaced by the group row, and the mask ``M`` of
+    the replaced rows (``newton.conservation_constraints``)."""
+    R, M = newton.conservation_constraints(ds.groups_dyn)
+    return torch.where(M[:, None] > 0, R, J), M
+
+
+def _polish(ds: DeviceSpec, cond: Conditions, x):
+    """Two constrained-Newton steps at the solution ``x [L, n_dyn]``. The
+    PTC solve stops at its residual tolerance, which bounds the error
+    along stiff directions only; the implicit function theorem holds at
+    the root, and full Newton on the conservation-constrained system
+    pins the soft modes too. Each lane keeps a step only if its own
+    max |F| does not grow."""
+    kf, kr, _ = rate_constants(ds, cond)
+    cl = closures(ds, cond, kf, kr)
+    F = cl.fscale(x)[0]
+    for _ in range(2):
+        B, M = _constrained(ds, cl.jac(x))
+        x_new = x - linalg.solve(B, F * (1.0 - M))
+        F_new = cl.fscale(x_new)[0]
+        better = (torch.amax(torch.abs(F_new), dim=-1)
+                  <= torch.amax(torch.abs(F), dim=-1))[:, None]
+        x = torch.where(better, x_new, x)
+        F = torch.where(better, F_new, F)
+    return x
+
+
+class _SteadyX(torch.autograd.Function):
+    """``x*(cond)``, the polished steady state's dynamic entries, with
+    the implicit-function-theorem adjoint as its backward: at F(x*, c) =
+    0, ``dx*/dc = -B^-1 Z dF/dc``, with ``B`` the Jacobian whose one row
+    per conservation group is the group row (so ``G x* = const`` holds
+    too) and ``Z`` zeroing those rows' entries. One transposed solve per
+    lane, then one vector-Jacobian product of the residual with respect
+    to every field of the conditions that requires grad."""
+
+    @staticmethod
+    def forward(ctx, ds, solve, *fields):
+        x = solve(Conditions(*fields))
+        ctx.ds = ds
+        ctx.save_for_backward(x, *fields)
+        return x
+
+    @staticmethod
+    def backward(ctx, xbar):
+        ds = ctx.ds
+        x, *fields = ctx.saved_tensors
+        want = ctx.needs_input_grad[2:]
+        B, M = _constrained(ds, steady_jacobian(ds, Conditions(*fields), x))
+        w = linalg.solve(B.mT.contiguous(), xbar.contiguous()) * (1.0 - M)
+        with torch.enable_grad():
+            leaves = [f.detach().requires_grad_(bool(n))
+                      for f, n in zip(fields, want)]
+            F = _residual(ds, Conditions(*leaves), x)
+            grads = iter(torch.autograd.grad(
+                F, [t for t, n in zip(leaves, want) if n], grad_outputs=-w,
+                allow_unused=True))
+        return (None, None) + tuple(next(grads) if n else None
+                                    for n in want)
+
+
+def make_steady_x(ds: DeviceSpec, opts: SolverOptions = SolverOptions(),
+                  x0=None, key=None):
+    """``f(cond) -> x* [L, n_dyn]``, differentiable by the implicit
+    function theorem (:class:`_SteadyX`): the forward pass is
+    :func:`steady_state` from ``x0`` with ``key``, then :func:`_polish`,
+    without grad; the backward pass is one adjoint solve per lane
+    (``linalg.solve``, routed as every solve of the port) instead of
+    2 n_r perturbed re-solves."""
+
+    def solve(cond):
+        res = steady_state(ds, cond, x0=x0, key=key, opts=opts)
+        return _polish(ds, cond, res.x[..., ds.dyn])
+    return lambda cond: _SteadyX.apply(ds, solve, *cond)
+
+
+def drc(ds: DeviceSpec, cond: Conditions, tof_terms,
+        opts: SolverOptions = SolverOptions(), x0=None, key=None):
+    """Degrees of rate control ``xi [L, n_r]``, ``xi_r = d ln TOF / d ln
+    k_r`` with kf and kr scaled together (Keq kept), in reaction order:
+    the gradient of ``sum_lanes ln TOF`` with respect to ``kscale``
+    through :func:`make_steady_x`. Lanes are independent, so each row is
+    its lane's own gradient; a lane whose TOF is NaN gives NaN, and one
+    whose TOF is negative gives ``d ln|TOF|``, as ``jax.grad`` of
+    ``jnp.log`` does."""
+    mask = torch.as_tensor(tof_mask_for(ds.host, tof_terms),
+                           dtype=torch.float64, device=ds.device)
+    xstar = make_steady_x(ds, opts, x0=x0, key=key)
+    kscale = cond.kscale.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        c = cond._replace(kscale=kscale)
+        y = compose_state(ds, c.y0, xstar(c))
+        ln_tof = torch.log(tof(ds, c, y, mask))
+        (xi,) = torch.autograd.grad(ln_tof.sum(), kscale)
+    return xi
+
+
+def drc_fd(ds: DeviceSpec, cond: Conditions, tof_terms, eps: float = 1e-3,
+           opts: SolverOptions | None = None, x0=None, key=None):
+    """Finite-difference degrees of rate control: central differences
+    with kf and kr scaled by ``1 +/- eps``. Each lane expands into its
+    ``2 n_r + 1`` scaled copies (base, up, down) and all ``L (2 n_r +
+    1)`` solves run as one :func:`steady_state` call. Returns ``(xi [L,
+    n_r], ok [L])``: ``ok`` is False where any of the lane's solves did
+    not converge (its quotient may mix branches).
+
+    Without ``opts`` the solves are tightened far below the default
+    steady tolerance (``rate_tol=1e-14, rate_tol_rel=1e-13,
+    max_steps=400``): an O(eps) rate change moves the residual by
+    O(eps flux), which a solve already within the default tolerance at
+    ``x0`` would not follow."""
+    if opts is None:
+        opts = SolverOptions(rate_tol=1e-14, rate_tol_rel=1e-13,
+                             max_steps=400)
+    mask = torch.as_tensor(tof_mask_for(ds.host, tof_terms),
+                           dtype=torch.float64, device=ds.device)
+    n_r = ds.n_reactions
+    m = 2 * n_r + 1
+    L = cond.kscale.shape[0]
+    eye = torch.eye(n_r, dtype=torch.float64, device=ds.device)
+    base = cond.kscale[:, None, :]
+    scales = torch.cat([base, base * (1.0 + eps * eye),
+                        base * (1.0 - eps * eye)], dim=1)
+    rep = lambda t: None if t is None else t.repeat_interleave(m, dim=0)
+    c = Conditions(*(rep(f) for f in cond))._replace(
+        kscale=scales.reshape(L * m, n_r))
+    res = steady_state(ds, c, x0=rep(x0), key=rep(key), opts=opts)
+    tofs = tof(ds, c, res.x, mask).reshape(L, m)
+    t0, tp, tm = tofs[:, :1], tofs[:, 1:1 + n_r], tofs[:, 1 + n_r:]
+    return ((tp - tm) / (2.0 * eps * t0),
+            torch.all(res.success.reshape(L, m), dim=1))

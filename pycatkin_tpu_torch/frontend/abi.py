@@ -45,6 +45,7 @@ ARITY_PAD = 6        # reac_idx / prod_idx width
 GROUPS_PAD = 8       # site-conservation groups
 SCALING_PAD = 8      # linear-scaling states
 LYAP_PAD = 4         # deflated dim of the Lyapunov certificate basis
+_BOUNDARY_MARGIN = 0.05   # validate.py warns within 5% of a bucket edge
 
 
 class AbiStatic(NamedTuple):

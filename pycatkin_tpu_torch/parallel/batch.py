@@ -21,8 +21,9 @@ settle the ambiguous lanes by a host eigensolve, or hand the sweep to
 (neighbor-seeded polish, the full PTC solve, LM), the quarantine
 re-check, the stability verdict and up to three rounds of unseeded
 re-solves of the lanes it demotes, then TOF and activity.
-:func:`batch_steady_state`, :func:`continuation_sweep` and
-:func:`stability_mask` are the JAX package's entries of the same names,
+:func:`batch_steady_state`, :func:`continuation_sweep`,
+:func:`stability_mask` and :func:`stack_conditions` are the JAX
+package's entries of the same names,
 and so is :func:`batch_transient`, the lane-batched transient
 (``engine.transient``) with its diagnostics bundle.
 """
@@ -75,6 +76,14 @@ def broadcast_conditions(cond: Conditions, n: int) -> Conditions:
     return Conditions(*(np.broadcast_to(np.asarray(v, dtype=np.float64),
                                         (n,) + np.shape(v)).copy()
                         for v in cond))
+
+
+def stack_conditions(conds: list[Conditions]) -> Conditions:
+    """Stack one-point Conditions into one lane batch (numpy arrays with
+    a leading lane axis; the entries move them to the device)."""
+    return Conditions(*(np.stack([np.asarray(v, dtype=np.float64)
+                                  for v in fields])
+                        for fields in zip(*conds)))
 
 
 def stability_screen(ds: engine.DeviceSpec, conds: Conditions, ys,

@@ -86,16 +86,17 @@ SYNCS = {"ode_active": 0, "finish_lanes": 0, "transient_bundle": 0}
 
 #: Lane-steps since the last :func:`reset_counters`: ``lanes`` counts
 #: every step attempt of every active lane (a host int); ``tally`` is a
-#: ``[2]`` int64 tensor on the integration's device (None before the
-#: first step) of the accepted steps that moved a lane's time and of the
+#: ``[2]`` int64 tensor on the latest integration's device (None before
+#: the first step; moved along when an integration on another device
+#: follows) of the accepted steps that moved a lane's time and of the
 #: steps that ended an interval by the steadiness shortcut, the rest
 #: being rejected. Three device ops a step update it and the loop never
 #: reads it; :func:`step_counts` does.
 STEPS: dict = {"lanes": 0, "tally": None}
 
 #: Lanes handed to the Newton finish (``engine.transient_finish``) and
-#: lanes it rescued (a 0-d tensor on the device once set) since the last
-#: :func:`reset_counters`.
+#: lanes it rescued (a 0-d tensor on the latest finish's device once
+#: set) since the last :func:`reset_counters`.
 FINISH: dict = {"lanes": 0, "rescued": 0}
 
 
@@ -323,7 +324,7 @@ def _step(fns: OdeFns, y, t, h, k, ok, t1: float, opts: ODEOptions,
     tally = torch.stack((moved, steady)).sum(dim=1)
     STEPS["lanes"] += len(moved)
     STEPS["tally"] = tally if STEPS["tally"] is None else \
-        STEPS["tally"] + tally
+        STEPS["tally"].to(tally.device) + tally
     # Failure only on persistent step collapse.
     return y, t, h_next, k + 1, ok & (h_next > 1e-250)
 

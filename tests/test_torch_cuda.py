@@ -478,3 +478,81 @@ def test_transient_on_the_card_matches_the_cpu(device, use_abi, max_steps):
     if not torch.allclose(ys.cpu(), ys_c, rtol=1e-5, atol=1e-12):
         _hold("ys", ys, ys_c, [run(c, "cpu")[0]
                                for c in _one_ulp_runs(conds)])
+
+
+def _drc_close(got, want, name):
+    """xi within rtol 1e-6 / atol 1e-9, NaN lanes equal."""
+    got = torch.as_tensor(np.asarray(got, dtype=float))
+    want = torch.as_tensor(np.asarray(want, dtype=float))
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin), name
+    assert torch.allclose(got[fin], want[fin], rtol=1e-6, atol=1e-9), name
+
+
+def test_system_on_the_card_matches_the_cpu(device):
+    """The facade on the toy mechanism of ``tests/torch_toy.py``:
+    ``solve_odes``, ``find_steady`` and ``degree_of_rate_control`` (both
+    modes) on the card against ``device="cpu"``."""
+    from torch_toy import TOF, toy
+
+    gpu, cpu = (toy("pycatkin_tpu_torch", device=d) for d in (device, "cpu"))
+    for sim in (gpu, cpu):
+        sim.solve_odes()
+    assert torch.allclose(torch.as_tensor(gpu.solution),
+                          torch.as_tensor(cpu.solution), rtol=1e-5,
+                          atol=1e-12)
+    rg, rc = gpu.find_steady(), cpu.find_steady()
+    assert rg.x.device.type == "cuda"
+    assert bool(rg.success) == bool(rc.success) is True
+    assert torch.allclose(rg.x.cpu(), rc.x, rtol=1e-5, atol=1e-12)
+    for mode in ("implicit", "fd"):
+        dg = gpu.degree_of_rate_control(TOF, mode=mode)
+        dc = cpu.degree_of_rate_control(TOF, mode=mode)
+        _drc_close(list(dg.values()), list(dc.values()), mode)
+
+
+def test_run_temperatures_on_the_card_matches_the_cpu(device):
+    """A 4-lane ``run_temperatures`` with the steady solve and the
+    implicit DRC on the card against the CPU."""
+    from pycatkin_tpu_torch.api import presets
+    from torch_toy import TOF, toy
+
+    Ts = [460.0, 500.0, 540.0, 580.0]
+    outs = [presets.run_temperatures(toy("pycatkin_tpu_torch", device=d),
+                                     Ts, steady_state_solve=True,
+                                     tof_terms=TOF) for d in (device, "cpu")]
+    (fg, rg, dg), (fc, rc, dc) = outs
+    assert np.allclose(fg, fc, rtol=1e-5, atol=1e-12)
+    assert np.allclose(rg, rc, rtol=1e-5, atol=1e-10)
+    for T in Ts:
+        _drc_close(list(dg[T].values()), list(dc[T].values()), f"T={T}")
+
+
+def test_drc_at_n165_on_the_card_matches_the_cpu(device):
+    """``engine.drc`` on 4 lanes of synthetic (200, 200) (n_dyn = 165)
+    from the card's sweep states: ``factor_solve`` launches three times
+    (two polish steps and the adjoint solve); the CPU run from the same
+    states has the same NaN lanes (the constrained Jacobian of this
+    mechanism hits exact zero pivots on most lanes) and the same finite
+    xi."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+
+    spec, base = synthetic_spec(200, 200, seed=0)
+    conds = batch.broadcast_conditions(base, 4)._replace(
+        T=np.linspace(420.0, 780.0, 4))
+    out = batch.fused_sweep(spec, conds, device=device)
+    x0 = out[0].x[:, list(spec.dynamic_indices)]
+    terms = [spec.rnames[-1]]
+    xis = []
+    for dev in (device, "cpu"):
+        ds = engine.bind(spec, dev)
+        ct = engine.conditions_to(conds, dev)
+        cl.reset_launches()
+        xis.append(engine.drc(ds, ct, terms, x0=x0.to(dev)).cpu())
+        if dev == device:
+            torch.cuda.synchronize()
+            assert cl.LAUNCHES["factor_solve"] == 3, cl.LAUNCHES
+    assert xis[0].shape == (4, spec.n_reactions)
+    _drc_close(xis[0].numpy(), xis[1].numpy(), "xi")

@@ -65,6 +65,44 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert out.stdout.startswith("0 "), out.stdout
 
 
+def test_port_imports_without_pandas_and_matplotlib():
+    """Every module of the port imports with pandas and matplotlib
+    blocked, as on a card machine that has neither: the presets write
+    their CSV files with the csv module, the plots import matplotlib
+    when called."""
+    mods = ["pycatkin_tpu_torch"] + [
+        "pycatkin_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(
+            os.sep, ".").replace(".__init__", "")
+        for p in _port_files() if p.startswith(PKG)]
+    code = ("import importlib, sys\n"
+            "sys.modules['pandas'] = None\n"
+            "sys.modules['matplotlib'] = None\n"
+            f"for m in {sorted(set(mods))!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_system_without_cuda_raises_when_it_computes(monkeypatch):
+    """``System(device=None)`` builds without a card and raises when a
+    computation would need one; ``device="cpu"`` runs."""
+    from pycatkin_tpu_torch.models.synthetic import synthetic_system
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sim = synthetic_system(10, 5, seed=0)
+    assert sim.spec.n_reactions == 5
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.rate_constant_table()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.find_steady(use_transient_guess=False)
+    sim.device_request = "cpu"
+    assert sim.rate_constant_table()[0].shape == (5,)
+
+
 def test_fused_sweep_without_cuda_raises_and_runs_nothing(monkeypatch):
     from pycatkin_tpu_torch.models.synthetic import synthetic_spec
     from pycatkin_tpu_torch.ops import cuda_linalg
