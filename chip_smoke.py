@@ -4,9 +4,13 @@
 
 Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
 
-1. device: the card's name and power limit (nvidia-smi) and the build time;
+1. device: the card's name and power limit (nvidia-smi) and the build
+   time; TF32 must be off for float32 matrix products (the f32 bulk
+   march's ``net @ stoich.T`` runs in full float32);
 2. kernel check: every kernel (``lu_factor``, ``lu_solve``,
-   ``factor_solve``) against its plain PyTorch version on the card, at
+   ``factor_solve``), in float64 and in float32 (``*_f32``, x within
+   1e-12 eps32 / eps64 there), against its plain PyTorch version in the
+   same type on the card, at
    n = 16, 32 (the warp tier), 9, 21, 54 (the unpadded transient's stage
    matrices), 64 (the resident tier, the matrix
    in shared memory, three or more lanes an SM), 112 (the resident tier
@@ -71,9 +75,11 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    version, the matching ``torch.linalg`` call, its bound and the FP64
    vector floor (see :func:`vector_floor_ms`), and the wrapper's host
    time per launch (checks, output allocation, the C entry's choice of
-   tier and plan, the launch); then, on no path, the three kernels at
-   n = 512 and ``factor_solve`` at n = 256 (phase 13b gives n = 165
-   its path);
+   tier and plan, the launch), the float32 builds at phase 14's and 15's
+   path shapes with 4-byte bounds and the FP32 vector floor; then, on
+   no path, the three kernels at n = 512 and ``factor_solve`` at n = 256
+   (phase 13b gives n = 165 its path), in both types, and
+   ``factor_solve_f32`` at the float64 paths' shapes;
 10. rescue path: ``sweep_steady_state(..., opts=SolverOptions(max_steps=6,
    max_attempts=3), abi=True, check_stability=True)`` on the ABI
    flagship, 65,536 lanes, T 400-800 K: the 6-step cap (the JAX
@@ -135,14 +141,29 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    within rtol 1e-6 / atol 1e-9 (:data:`DRC_ENVELOPE`), else within
    twice the CPU's own spread with T up, T down and kscale up by one
    ulp. Phase 7's CPU comparisons wait until after phase 11, phase
-   12's last until after phase 13.
+   12's last until after phase 9's timings;
+14. the f32-polish precision tier: ``sweep_steady_state(...,
+   tier="f32-polish")`` on the unpadded flagship (65,536 lanes, n = 21,
+   Gauss-Jordan in float32, no kernel), the ABI flagship (65,536 lanes,
+   D = 32, the float32 warp tier) and the large ABI path (2,048 lanes,
+   D = 256, the float32 panel tier), first call and warm, each against
+   the same path's float64 run (see :func:`tier_path`: verdicts bitwise,
+   float32 launches, a CPU prefix of 256 (16) lanes at the same tier in
+   the worker pool, the counts of lanes whose strategy column or root
+   differs from float64's);
+15. the packed multi-tenant sweep: four tenants of one bucket (D = 32) x
+   16,384 lanes under both tiers, each tenant's dict equal to its solo
+   sweep's bit for bit, the packed launches and host syncs beside the
+   solo sweeps', then a K = 3 pack (see :func:`pack_phase`).
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
 line with one row per kernel per path that launches it (``path``:
 ``certificate``, ``abi_flagship``, ``abi_certificate``, ``rescue_abi``,
 ``large``, ``large_abi``, ``transient``, ``transient_abi``,
-``transient_esdirk4`` or ``drc_large``), the
+``transient_esdirk4``, ``drc_large``, ``abi_flagship_f32``,
+``large_abi_f32``, ``packed`` or ``packed_f32``; the float32 kernels
+are named ``lu_factor_f32`` etc.), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA card it exits 1 and
 prints no result.
@@ -167,8 +188,20 @@ PEAK_BYTES_PER_S = 3.35e12
 # FP64 units x 1.98 GHz boost clock (the data sheet's 34 TFLOP/s counts
 # an FMA as two operations).
 FP64_VECTOR_INSTR_PER_S = 132 * 64 * 1.98e9
+# FP32 outside the tensor cores: 67 TFLOP/s (the data sheet), and the
+# vector instructions a second of 132 SMs x 128 FP32 units at 1.98 GHz.
+PEAK_FP32_FLOPS = 67.0e12
+FP32_VECTOR_INSTR_PER_S = 132 * 128 * 1.98e9
 SIZES = (9, 16, 21, 32, 54, 64, 112, 128, 165, 170, 200, 256, 512)
 KERNEL_TOL = 1e-12
+# The float32 kernels' x gate: KERNEL_TOL scaled by eps32 / eps64 (~5.4e-4).
+F32_KERNEL_TOL = KERNEL_TOL * 2.0 ** -23 / 2.0 ** -52
+# Phase 14: the f32-polish tier's states against the float64 sweep's, the
+# envelope of tests/test_precision_tiers.py (_Y_TOL).
+Y_TOL = dict(rtol=5e-2, atol=1e-12)
+PACK_LANES = 16384       # phase 15: lanes of each of the four tenants
+PACK_SEEDS = (0, 1, 2, 3)
+PACK3_LANES = 1024       # phase 15: the K = 3 pack's lanes a tenant
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
 ABI_CERT_LANES = 65536
@@ -216,6 +249,18 @@ LARGE_ENVELOPE = dict(rtol=1e-5, atol=1e-9)
 # (tests/test_torch_network.py), which moves the normalized residual
 # |F| / (rate_tol + rate_tol_rel gross) by up to 1e-12 / 1e-9.
 RESIDUAL_SLACK = 1e-3
+# Phase 14: (label, mechanism, lanes, abi, check_stability, CPU prefix,
+# the states' envelope there) of each path run under the f32-polish tier
+# beside its float64 run: the unpadded flagship (Gauss-Jordan, whose
+# states the reference moves by ~1e-4 under one ulp, hence no envelope:
+# the one-ulp rule), the ABI flagship and the large ABI path.
+TIER_PATHS = (
+    ("flagship", (24, 32), FLAGSHIP_LANES, False, True, SUBSET, None),
+    ("abi_flagship", (24, 32), FLAGSHIP_LANES, True, True, SUBSET,
+     ENVELOPE),
+    ("large_abi", (200, 200), LARGE_LANES, True, False, LARGE_SUBSET,
+     LARGE_ENVELOPE),
+)
 
 
 START = time.perf_counter()
@@ -285,23 +330,25 @@ def lu_updates(n: int) -> float:
     return float(sum(m * m for m in range(1, n)))
 
 
-def vector_floor_ms(updates: float) -> float:
-    """Least time for ``updates`` multiply-subtracts on the FP64 vector
-    units when each must round twice (the kernels' contract forbids FMA,
-    so the FP64 tensor cores, whose DMMA fuses the multiply-add, are out):
-    two instructions per update."""
-    return 2.0 * updates / FP64_VECTOR_INSTR_PER_S * 1e3
+def vector_floor_ms(updates: float, f32: bool = False) -> float:
+    """Least time for ``updates`` multiply-subtracts on the FP64 (or
+    FP32) vector units when each must round twice (the kernels' contract
+    forbids FMA, so the tensor cores, whose DMMA fuses the multiply-add,
+    are out): two instructions per update."""
+    rate = FP32_VECTOR_INSTR_PER_S if f32 else FP64_VECTOR_INSTR_PER_S
+    return 2.0 * updates / rate * 1e3
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, f32: bool = False):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP64_FLOPS * 1e3
+    t_ops = flops / (PEAK_FP32_FLOPS if f32 else PEAK_FP64_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def test_matrices(lanes: int, n: int, seed: int, device):
+def test_matrices(lanes: int, n: int, seed: int, device, dtype=None):
     """``lanes`` diagonally dominant (well-conditioned) row-shuffled
-    systems plus one singular lane (a zero column) at the end."""
+    systems plus one singular lane (a zero column) at the end, in
+    ``dtype`` (float64 unless given)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -311,7 +358,8 @@ def test_matrices(lanes: int, n: int, seed: int, device):
         A[i] = A[i][rng.permutation(n)]
     A[-1, :, n // 2] = 0.0
     b = rng.standard_normal((lanes + 1, n))
-    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device).to(
+        dtype or torch.float64)
     return t(A), t(b)
 
 
@@ -329,13 +377,16 @@ def check_lanes(n: int) -> int:
     return CHECK_LANES if n <= 128 else LARGE_CHECK_LANES
 
 
-def check_kernels(cl, device) -> None:
-    """Phase 2a: each kernel against its plain version at every size."""
+def check_kernels(cl, device, dtype) -> None:
+    """Phase 2a: each kernel of element type ``dtype`` against its plain
+    version at every size (x within :data:`KERNEL_TOL`, in float32
+    :data:`F32_KERNEL_TOL`)."""
     import torch
+    tol = F32_KERNEL_TOL if dtype == torch.float32 else KERNEL_TOL
     unequal = []
     for n in SIZES:
         lanes = check_lanes(n)
-        A, b = test_matrices(lanes, n, seed=n, device=device)
+        A, b = test_matrices(lanes, n, seed=n, device=device, dtype=dtype)
         B = b[:, :, None].repeat(1, 1, 4).contiguous()
         LU, perm = cl.lu_factor(A)
         torch.cuda.synchronize()
@@ -355,8 +406,8 @@ def check_kernels(cl, device) -> None:
             torch.cuda.synchronize()
             xfr = cl.factor_solve_ref(A, rhs)
             e1, e2 = rel_err(x[good], xr[good]), rel_err(xf[good], xfr[good])
-            assert e1 <= KERNEL_TOL, f"lu_solve n={n} {name}: {e1}"
-            assert e2 <= KERNEL_TOL, f"factor_solve n={n} {name}: {e2}"
+            assert e1 <= tol, f"lu_solve n={n} {name}: {e1}"
+            assert e2 <= tol, f"factor_solve n={n} {name}: {e2}"
             for out in (x, xf):
                 assert not bool(torch.isfinite(out[-1]).all()), \
                     f"n={n} {name}: singular lane came out finite"
@@ -368,7 +419,8 @@ def check_kernels(cl, device) -> None:
                 unequal.append(f"n={n} {name}")
             errs[name] = max(e1, e2)
         assert not bool(torch.isfinite(LU[-1]).all())
-        log(f"kernel check n={n}: {lanes}+1 lanes, perm and LU equal, x rel "
+        log(f"kernel check {str(dtype)[6:]} n={n}: {lanes}+1 lanes, perm and "
+            f"LU equal, x rel "
             f"err vec {errs['vec']:.2e} mat {errs['mat']:.2e}, lu_solve and "
             f"factor_solve bit for bit vec {eq['vec']} mat {eq['mat']}, "
             f"singular lane non-finite")
@@ -376,12 +428,15 @@ def check_kernels(cl, device) -> None:
         f"lu_solve(*lu_factor(A), b) differs from factor_solve(A, b): {unequal}"
 
 
-def time_lu(cl, n: int, L: int, device) -> list:
+def time_lu(cl, n: int, L: int, device, dtype=None) -> list:
     """Phase 2b: ``lu_factor`` and ``lu_solve`` at ``L`` lanes of size
     ``n`` (the last lane singular) beside their plain versions and the
-    matching torch.linalg calls; returns one row each."""
+    matching torch.linalg calls, in ``dtype`` (float64 unless given; the
+    float32 rows are named ``*_f32``); returns one row each."""
     import torch
-    A, b = test_matrices(L - 1, n, seed=n, device=device)
+    f32 = dtype == torch.float32
+    sfx, e, tol = ("_f32", 4, F32_KERNEL_TOL) if f32 else ("", 8, KERNEL_TOL)
+    A, b = test_matrices(L - 1, n, seed=n, device=device, dtype=dtype)
     LU, perm = cl.lu_factor(A)
     LUr, permr = cl.lu_factor_ref(A)
     lu_err = float(torch.max(torch.abs(LU[:-1] - LUr[:-1])))
@@ -393,52 +448,55 @@ def time_lu(cl, n: int, L: int, device) -> list:
     hus = host_us(lambda: cl.lu_factor(A), REPS)
     plain = cuda_ms(lambda: cl.lu_factor_ref(A), 2)
     lib = cuda_ms(lambda: torch.linalg.lu_factor_ex(A), REPS)
-    bms, by = bound(L * (2 * n * n * 8 + n * 4), L * lu_flops(n))
-    rows = [dict(name="lu_factor", n=n, lanes=L, max_abs_err=lu_err, ms=ms,
-                 plain_ms=plain, bound_ms=bms, bound_by=by,
+    bms, by = bound(L * (2 * n * n * e + n * 4), L * lu_flops(n), f32)
+    rows = [dict(name="lu_factor" + sfx, n=n, lanes=L, max_abs_err=lu_err,
+                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                  library_ms=lib, host_us=hus,
-                 vector_floor_ms=vector_floor_ms(L * lu_updates(n)))]
+                 vector_floor_ms=vector_floor_ms(L * lu_updates(n), f32))]
 
     x = cl.lu_solve(LU, perm, b)
     xr = cl.lu_solve_ref(LUr, permr, b)
     sol_err = float(torch.max(torch.abs(x[:-1] - xr[:-1])))
-    e = rel_err(x[:-1], xr[:-1])
-    assert e <= KERNEL_TOL, f"lu_solve n={n} x {L}: rel err {e}"
+    err = rel_err(x[:-1], xr[:-1])
+    assert err <= tol, f"lu_solve n={n} x {L}: rel err {err}"
     tLU, tpiv, _ = torch.linalg.lu_factor_ex(A)
     ms = cuda_ms(lambda: cl.lu_solve(LU, perm, b), REPS)
     hus = host_us(lambda: cl.lu_solve(LU, perm, b), REPS)
     plain = cuda_ms(lambda: cl.lu_solve_ref(LU, perm, b), 2)
     lib = cuda_ms(lambda: torch.linalg.lu_solve(tLU, tpiv, b[:, :, None]),
                   REPS)
-    bms, by = bound(L * (n * n * 8 + n * 4 + 2 * n * 8),
-                    L * solve_flops(n))
-    rows.append(dict(name="lu_solve", n=n, lanes=L, max_abs_err=sol_err,
-                     ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                     library_ms=lib, host_us=hus,
-                     vector_floor_ms=vector_floor_ms(L * (n * n - n))))
+    bms, by = bound(L * (n * n * e + n * 4 + 2 * n * e),
+                    L * solve_flops(n), f32)
+    rows.append(dict(name="lu_solve" + sfx, n=n, lanes=L,
+                     max_abs_err=sol_err, ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=lib, host_us=hus,
+                     vector_floor_ms=vector_floor_ms(L * (n * n - n), f32)))
     return rows
 
 
-def time_factor_solve(cl, n: int, L: int, device) -> dict:
+def time_factor_solve(cl, n: int, L: int, device, dtype=None) -> dict:
     """Phase 2b: ``factor_solve`` at ``L`` lanes of size ``n`` beside its
-    plain version and ``torch.linalg.solve_ex``; returns its row."""
+    plain version and ``torch.linalg.solve_ex``, in ``dtype`` (float64
+    unless given); returns its row."""
     import torch
-    A, b = test_matrices(L - 1, n, seed=2, device=device)
+    f32 = dtype == torch.float32
+    sfx, e, tol = ("_f32", 4, F32_KERNEL_TOL) if f32 else ("", 8, KERNEL_TOL)
+    A, b = test_matrices(L - 1, n, seed=2, device=device, dtype=dtype)
     xf = cl.factor_solve(A, b)
     xfr = cl.factor_solve_ref(A, b)
     fs_err = float(torch.max(torch.abs(xf[:-1] - xfr[:-1])))
-    e = rel_err(xf[:-1], xfr[:-1])
-    assert e <= KERNEL_TOL, f"factor_solve n={n} x {L}: rel err {e}"
+    err = rel_err(xf[:-1], xfr[:-1])
+    assert err <= tol, f"factor_solve n={n} x {L}: rel err {err}"
     ms = cuda_ms(lambda: cl.factor_solve(A, b), REPS)
     hus = host_us(lambda: cl.factor_solve(A, b), REPS)
     plain = cuda_ms(lambda: cl.factor_solve_ref(A, b), 2)
     lib = cuda_ms(lambda: torch.linalg.solve_ex(A, b), REPS)
-    bms, by = bound(L * (n * n * 8 + 2 * n * 8),
-                    L * (lu_flops(n) + solve_flops(n)))
-    return dict(name="factor_solve", n=n, lanes=L, max_abs_err=fs_err,
+    bms, by = bound(L * (n * n * e + 2 * n * e),
+                    L * (lu_flops(n) + solve_flops(n)), f32)
+    return dict(name="factor_solve" + sfx, n=n, lanes=L, max_abs_err=fs_err,
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                 library_ms=lib, host_us=hus, vector_floor_ms=vector_floor_ms(
-                    L * (lu_updates(n) + n * n - n)))
+                    L * (lu_updates(n) + n * n - n), f32))
 
 
 def check_gauss(device) -> None:
@@ -480,7 +538,10 @@ def check_prng(device) -> None:
 def counted(run):
     """``run()`` with the launch counters and the sync and step counters
     zeroed just before and read just after; returns (output, counts,
-    syncs, wall seconds)."""
+    syncs, wall seconds). ``counts`` holds the float64 kernels' launches
+    by name and the float32 kernels' as ``<name>_f32``; ``syncs`` counts
+    the solver loops' checks, the integrator's and the sweeps' bundle
+    pulls."""
     import torch
     from pycatkin_tpu_torch.ops import cuda_linalg as cl
     from pycatkin_tpu_torch.solvers import newton, ode
@@ -493,7 +554,9 @@ def counted(run):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     syncs = sum(newton.SYNCS.values()) + sum(ode.SYNCS.values())
-    return out, dict(cl.LAUNCHES), syncs, wall
+    counts = dict(cl.LAUNCHES)
+    counts.update({k + "_f32": v for k, v in cl.LAUNCHES_F32.items()})
+    return out, counts, syncs, wall
 
 
 def fused(spec, conds, mask, device):
@@ -1049,6 +1112,253 @@ def large_cpu_rerun(use_abi: bool):
     return [rerun(c) for c in (sub,) + one_ulp_conditions(sub)]
 
 
+def prefix(conds, size: int):
+    """The first ``size`` lanes of ``conds`` (numpy)."""
+    import numpy as np
+    return type(conds)(*(np.asarray(f)[:size] for f in conds))
+
+
+def same_bits(a, b) -> bool:
+    """``torch.equal`` on the tensors' bits (a NaN equals itself)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        iv = {8: torch.int64, 4: torch.int32}[a.element_size()]
+        a, b = a.contiguous().view(iv), b.contiguous().view(iv)
+    return torch.equal(a, b)
+
+
+def moved_lanes(y, ref):
+    """The lanes whose states lie outside :data:`Y_TOL` of ``ref``'s."""
+    import torch
+    return torch.any(torch.abs(y - ref) > Y_TOL["atol"]
+                     + Y_TOL["rtol"] * torch.abs(ref), dim=-1)
+
+
+def tier_cpu_rerun(label: str):
+    """Phase 14's CPU re-run of the path ``label`` of :data:`TIER_PATHS`,
+    in a worker process: its prefix through the plain versions under the
+    f32-polish tier, as it is and with T up, T down and kscale up by one
+    ulp (:func:`one_ulp_conditions`), then under float64. It needs no
+    result of the card, so it is queued early. Returns the five result
+    dicts."""
+    import torch
+    torch.set_num_threads(2)
+    os.nice(10)
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    _, shape, L, use_abi, check, P, _ = next(p for p in TIER_PATHS
+                                             if p[0] == label)
+    spec, base = synthetic_spec(*shape, seed=0)
+    mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
+    sub = prefix(lanes_over_T(base, L), P)
+    run = lambda c, tier: batch.sweep_steady_state(
+        spec, c, mask, check_stability=check, abi=use_abi, device="cpu",
+        tier=tier)
+    return [run(c, "f32-polish") for c in (sub,) + one_ulp_conditions(sub)] \
+        + [run(sub, "f64")]
+
+
+def tier_path(label, spec, conds, mask, use_abi, check, envelope, ref,
+              ref_stats, job, device) -> dict:
+    """Phase 14: one path under ``tier="f32-polish"``, first call and
+    warm, against the same path's float64 run ``ref`` (``ref_stats``: its
+    first and warm walls, host syncs and peak MiB). Gates: the verdict
+    masks, quarantine and stability bitwise the float64 run's; float32
+    ``lu_factor`` / ``lu_solve`` launches where the path's direction
+    solves take a kernel (none on the unpadded flagship, whose n = 21
+    takes Gauss-Jordan); the tier column 1 only on first-pass lanes; the
+    CPU prefix (``job``, :func:`tier_cpu_rerun`) with the verdicts and
+    the strategy and tier columns bitwise, states, TOF and activity
+    within ``envelope`` else within twice the CPU's one-ulp spread (with
+    the convergence test), and the lanes whose states leave
+    :data:`Y_TOL` of the float64 ones the same on the card's prefix as
+    on the CPU's. Two counts are printed, not refused, because the JAX
+    package's tier shows them too (ROADMAP Queue C item 7): the lanes
+    whose strategy column differs from the float64 run's (a float32
+    first pass that fails where the float64 one converges, or the
+    reverse, then the ladder) and the lanes whose float32 march ends on
+    another stable steady state. Returns the launch counts of the first
+    call."""
+    import numpy as np
+    import torch
+    from pycatkin_tpu_torch.parallel import batch
+    L = len(conds.T)
+    run = lambda: batch.sweep_steady_state(
+        spec, conds, mask, check_stability=check, abi=use_abi,
+        device=device, tier="f32-polish")
+    torch.cuda.reset_peak_memory_stats()
+    out, counts, syncs, wall = counted(run)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    _, _, wsyncs, warm = counted(run)
+    names = [n for n in ("success", "quarantined", "stable", "rate_ok",
+                         "pos_ok", "sums_ok") if n in ref]
+    tel, rtel = out["lane_telemetry"], ref["lane_telemetry"]
+    differ = {n: int((out[n] != ref[n]).sum()) for n in names}
+    n_strategy = int((tel[:, 3] != rtel[:, 3]).sum())
+    moved = moved_lanes(out["y"], ref["y"])
+    ok = out["success"]
+    f1, w1, s1, p1 = ref_stats
+    log(f"phase 14 tier {label}: f32-polish, {L} lanes | lanes whose "
+        f"verdicts differ from the float64 run: {differ}, whose strategy "
+        f"column differs: {n_strategy} | converged "
+        f"{int(ok.sum())}, tier code 1 on {int((tel[:, 4] == 1).sum())} "
+        f"lanes | states outside rtol 5e-2 / atol 1e-12 of the float64 "
+        f"states on {int(moved.sum())} lanes | wall first {wall:.3f} s "
+        f"warm {warm:.3f} s ({L / warm:.1f} lanes/s) vs float64 first "
+        f"{f1:.3f} s warm {w1:.3f} s ({L / w1:.1f} lanes/s) | host syncs "
+        f"{syncs} (warm {wsyncs}) vs {s1} | peak memory {peak:.1f} MiB vs "
+        f"{p1:.1f} MiB | launches {counts}")
+    assert not any(differ.values()), (label, differ)
+    if use_abi:
+        assert counts["lu_factor_f32"] > 0 and counts["lu_solve_f32"] > 0, \
+            counts
+    else:
+        assert set(counts.values()) == {0}, counts
+    assert bool(((tel[:, 4] == 0) | (tel[:, 3] == 0)).all())
+    assert bool(torch.isfinite(out["y"][ok]).all())
+
+    runs = job.get(timeout=max(TRANSIENT_GATE_BY
+                               - (time.perf_counter() - START), 1.0))
+    cpu, ulps, cpu64 = runs[0], runs[1:4], runs[4]
+    P = len(cpu["y"])
+    idx = np.arange(P)
+    sub = prefix(conds, P)
+    for n in names:
+        assert torch.equal(out[n][:P].cpu(), cpu[n]), \
+            f"phase 14 {label} CPU prefix parity: {n} differs"
+    assert torch.equal(tel[:P, 3:].cpu(), cpu["lane_telemetry"][:, 3:]), \
+        f"phase 14 {label} CPU prefix parity: telemetry columns differ"
+    fields = {"x": lambda o: o["y"], "tof": lambda o: o["tof"],
+              "activity": lambda o: o["activity"]}
+    gaps = {k: envelope_gap(g(out)[:P].cpu(), g(cpu), envelope or ENVELOPE)
+            for k, g in fields.items()}
+    held = "; ".join(f"{k} max gap {d:.3e} ({f:.3g} of the envelope)"
+                     for k, (d, f) in gaps.items())
+    if envelope is not None and all(f <= 1.0 for _, f in gaps.values()):
+        gate = "held to the envelope"
+    else:
+        gate = one_ulp_gate(f"phase 14 {label}", spec, sub, None, cpu, out,
+                            idx, fields, runs=ulps)
+    cmoved = moved_lanes(cpu["y"], cpu64["y"])
+    assert torch.equal(moved[:P].cpu(), cmoved), \
+        f"phase 14 {label}: the lanes off the float64 states differ " \
+        f"between the card ({int(moved[:P].sum())}) and the CPU " \
+        f"({int(cmoved.sum())})"
+    log(f"phase 14 tier {label} CPU parity: the first {P} lanes under "
+        f"f32-polish on the CPU through the plain versions, and with T up, "
+        f"T down, kscale up one ulp: {', '.join(names)}, strategy and tier "
+        f"columns equal; {held}; {gate}; lanes off the float64 states "
+        f"{int(cmoved.sum())} on the CPU, the same on the card")
+    return counts
+
+
+def pack_phase(device) -> dict:
+    """Phase 15: four same-bucket tenants of ``PACK_LANES`` lanes each, T
+    400-800 K, TOF, ``check_stability=True``, under both tiers: each
+    tenant's solo ``sweep_steady_state(..., abi=True)``, then
+    ``packed_sweep_steady_state`` first and warm; every tenant's dict
+    equal to its solo one key by key (bits). Prints the packed fast
+    pass's ``lu_factor`` launches and host syncs beside each solo sweep's
+    and the packed wall beside the sum of the solo walls. Then a K = 3
+    pack of :data:`PACK3_LANES` lanes a tenant. Returns the packed runs'
+    launch counts by tier."""
+    import torch
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.frontend import abi
+    from pycatkin_tpu_torch.models.synthetic import \
+        synthetic_system_for_bucket
+    from pycatkin_tpu_torch.parallel import batch
+
+    def tenants(shape):
+        kw = {} if shape is None else dict(n_species=shape[0],
+                                           n_reactions=shape[1])
+        out = []
+        for seed in PACK_SEEDS:
+            sysm = synthetic_system_for_bucket(128, seed=seed, **kw)
+            out.append((sysm.build(strict=False).spec, sysm.conditions()))
+        return out
+
+    ts = tenants(None)
+    Ds = [abi.lower_spec(sp).static.n_dynamic for sp, _ in ts]
+    which = f"synthetic_system_for_bucket(128, seed={list(PACK_SEEDS)})"
+    if set(Ds) != {32}:
+        which = (f"synthetic_system_for_bucket(128) at its default shape "
+                 f"lowers seeds {list(PACK_SEEDS)} to D = {Ds}; taken: "
+                 f"seeds {list(PACK_SEEDS)} at n_species=24, "
+                 f"n_reactions=32 (the flagship's shape, bucket 128)")
+        ts = tenants((24, 32))
+    lows = [abi.lower_spec(sp) for sp, _ in ts]
+    assert len({low.static for low in lows}) == 1, [l.static for l in lows]
+    st = lows[0].static
+    assert st.n_dynamic == 32, st
+    specs = [sp for sp, _ in ts]
+    masks = [engine.tof_mask_for(sp, [sp.rnames[-1]]) for sp in specs]
+    K = len(specs)
+    by_tier = {}
+    for tier in ("f64", "f32-polish"):
+        conds = [lanes_over_T(b, PACK_LANES) for _, b in ts]
+        solo = [counted(lambda sp=sp, c=c, m=m: batch.sweep_steady_state(
+            sp, c, m, check_stability=True, abi=True, device=device,
+            tier=tier)) for sp, c, m in zip(specs, conds, masks)]
+        run = lambda: batch.packed_sweep_steady_state(
+            specs, conds, masks, check_stability=True, device=device,
+            tier=tier)
+        torch.cuda.reset_peak_memory_stats()
+        packed, pcounts, psyncs, pwall = counted(run)
+        ppeak = torch.cuda.max_memory_allocated() / 2**20
+        _, _, _, pwarm = counted(run)
+        for k, ((so, _, _, _), pa) in enumerate(zip(solo, packed)):
+            assert sorted(so) == sorted(pa), (tier, k)
+            bad = [key for key in so if not same_bits(so[key], pa[key])]
+            assert not bad, f"phase 15 {tier} tenant {k}: {bad} differ " \
+                f"from its solo sweep"
+        lu = "lu_factor" + ("_f32" if tier == "f32-polish" else "")
+        clean = all(bool(so["success"].all())
+                    and bool((so["lane_telemetry"][:, 3] == 0).all())
+                    for so, _, _, _ in solo)
+        solo_lu = [c[lu] for _, c, _, _ in solo]
+        solo_syncs = [sy for _, _, sy, _ in solo]
+        solo_wall = sum(w for _, _, _, w in solo)
+        log(f"phase 15 packed {tier}: {which}; S={st.n_species} "
+            f"R={st.n_reactions} D={st.n_dynamic}, {K} tenants x "
+            f"{PACK_LANES} lanes, T 400-800 K | every tenant equal to its "
+            f"solo sweep key by key (bits) | converged and stable "
+            f"{[int(p['success'].sum()) for p in packed]}, all first pass "
+            f"{clean} | {lu} launches packed {pcounts[lu]} vs solo "
+            f"{solo_lu} | host syncs packed {psyncs} vs solo {solo_syncs} "
+            f"| wall packed first {pwall:.3f} s warm {pwarm:.3f} s "
+            f"({K * PACK_LANES / pwarm:.1f} lanes/s) vs the four solo "
+            f"sweeps {solo_wall:.3f} s | peak memory packed {ppeak:.1f} "
+            f"MiB | launches packed {pcounts}")
+        assert pcounts[lu] > 0
+        if clean:
+            assert pcounts[lu] == max(solo_lu), (pcounts[lu], solo_lu)
+            assert psyncs == max(solo_syncs), (psyncs, solo_syncs)
+        by_tier[tier] = pcounts
+        del packed, solo
+        conds3 = [lanes_over_T(b, PACK3_LANES) for _, b in ts[:3]]
+        solo3 = [batch.sweep_steady_state(sp, c, m, check_stability=True,
+                                          abi=True, device=device,
+                                          tier=tier)
+                 for sp, c, m in zip(specs, conds3, masks)]
+        pack3 = batch.packed_sweep_steady_state(
+            specs[:3], conds3, masks[:3], check_stability=True,
+            device=device, tier=tier)
+        for k, (so, pa) in enumerate(zip(solo3, pack3)):
+            bad = [key for key in so if not same_bits(so[key], pa[key])]
+            assert not bad, f"phase 15 K=3 {tier} tenant {k}: {bad}"
+        log(f"phase 15 packed {tier} K=3 (tenant bucket "
+            f"{abi.pack_lowered(lows[:3]).k_bucket}): 3 x {PACK3_LANES} "
+            f"lanes, every tenant equal to its solo sweep key by key "
+            f"(bits)")
+    return by_tier
+
+
 def start_transient_cpu_reruns():
     """Start the CPU re-runs of phase 12's paths and of phase 7's two,
     one worker process each (spawned, so they hold no CUDA context), to
@@ -1382,12 +1692,17 @@ def run_phases(pool, pending, large) -> int:
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     cl.build(verbose=True)
+    # The float32 bulk products (net @ stoich.T, the gross flux) must run
+    # in full float32: the port never sets TF32 on.
+    assert not torch.backends.cuda.matmul.allow_tf32
     log(f"phase 1 device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | kernels built in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s | float32 matmul allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
 
     # -- phase 2: kernels against their plain versions -----------------
-    check_kernels(cl, device)
+    check_kernels(cl, device, torch.float64)
+    check_kernels(cl, device, torch.float32)
     check_gauss(device)
     check_prng(device)
     log("phase 2 kernel check: all sizes passed")
@@ -1454,7 +1769,7 @@ def run_phases(pool, pending, large) -> int:
     apeak = torch.cuda.max_memory_allocated() / 2**20
     report_abi("phase 5 ABI flagship path", low, L, aout, acounts, asyncs,
                awall, apeak)
-    assert all(acounts[k] > 0 for k in acounts), acounts
+    assert all(acounts[k] > 0 for k in cl.LAUNCHES), acounts
     abi_cpu_parity("phase 5", spec, conds, mask, aout)
 
     # -- phase 6: the ABI certificate path -----------------------------
@@ -1501,6 +1816,9 @@ def run_phases(pool, pending, large) -> int:
         (200, 200), Lg, g_sub,
         gout[0].x[torch.as_tensor(g_sub, device=device)][:, gdyn].cpu()
         .numpy(), "implicit"))
+    # Phase 14's CPU prefixes, behind phase 13's re-runs in the pool.
+    tier_jobs = {p[0]: pool.apply_async(tier_cpu_rerun, (p[0],))
+                 for p in TIER_PATHS}
     glow = abi.lower_spec(gspec)
     assert glow.static.n_dynamic == 256
     assert linalg.select_solver(glow.static.n_dynamic).path == "lu"
@@ -1515,9 +1833,9 @@ def run_phases(pool, pending, large) -> int:
     assert hcounts["lu_factor"] > 0 and hcounts["lu_solve"] > 0, hcounts
 
     # -- phase 8: where the time goes -----------------------------------
-    profile_path(run_abi, L, "ABI flagship")
+    w_abi = profile_path(run_abi, L, "ABI flagship")
     profile_path(run_large, Lg, "large")
-    profile_path(run_large_abi, Lg, "large ABI")
+    w_large_abi = profile_path(run_large_abi, Lg, "large ABI")
     _, _, _, fwall = counted(fused(spec, conds, mask, device))
     log(f"phase 8 warm flagship: wall {fwall:.3f} s, {L / fwall:.1f} "
         f"lanes/s")
@@ -1589,8 +1907,31 @@ def run_phases(pool, pending, large) -> int:
         f"worker, and with T up, T down, kscale up one ulp ({cwall:.1f} s): "
         f"{drc_parity('phase 13c', xc[fi], okc[fi], runs)}")
 
-    # Phase 12's last CPU comparison: its re-run had phase 13 to finish.
-    parity()
+    # -- phase 14: the f32-polish tier on three paths ---------------------
+    from pycatkin_tpu_torch.parallel import batch
+    run64 = lambda: batch.sweep_steady_state(spec, conds, mask,
+                                             check_stability=True,
+                                             device=device)
+    torch.cuda.reset_peak_memory_stats()
+    fout, _, fsyncs, f1 = counted(run64)
+    fpeak = torch.cuda.max_memory_allocated() / 2**20
+    _, _, _, fw = counted(run64)
+    refs = {"flagship": (spec, fout, (f1, fw, fsyncs, fpeak)),
+            "abi_flagship": (spec, aout, (awall, w_abi, asyncs, apeak)),
+            "large_abi": (gspec, hout, (hwall, w_large_abi, hsyncs, hpeak))}
+    tier_counts = {}
+    for label, shape, Lt, use_abi, check, _, env in TIER_PATHS:
+        tspec, ref, stats = refs[label]
+        tconds = conds if tspec is spec else gconds
+        tmask = mask if tspec is spec else gmask
+        tier_counts[label] = tier_path(label, tspec, tconds, tmask, use_abi,
+                                       check, env, ref, stats,
+                                       tier_jobs[label], device)
+    del fout
+
+    # -- phase 15: the packed multi-tenant sweep ---------------------------
+    pack_counts = pack_phase(device)
+
 
     # -- phase 9, kernels line: one row per kernel per path ---------------
     m = deflation_basis_for_spec(cspec).shape[1]
@@ -1617,11 +1958,32 @@ def run_phases(pool, pending, large) -> int:
     timed += [("drc_large", cb, r)
               for r in large_lu + [time_factor_solve(cl, g_dyn, Lg, device)]
               if cb[r["name"]] > 0]
+    # Phases 14 and 15: the float32 builds at the tier's path shapes (the
+    # float64 polish and certificate launch the float64 ones there too),
+    # and the packed sweep (four tenants of 16,384 lanes: the direction
+    # solves at n = 32 x 65,536, the certificate per tenant at 16).
+    assert not torch.backends.cuda.matmul.allow_tf32
+    on_path = lambda path, c, rows: [(path, c, r) for r in rows
+                                     if c[r["name"]] > 0]
+    rows_of = lambda path: [r for p_, _, r in timed if p_ == path]
+    abi_rows = rows_of("abi_flagship")
+    f32_abi = time_lu(cl, low.static.n_dynamic, L, device, torch.float32)
+    f32_large = time_lu(cl, glow.static.n_dynamic, Lg, device, torch.float32)
+    timed += on_path("abi_flagship_f32", tier_counts["abi_flagship"],
+                     f32_abi + abi_rows)
+    timed += on_path("large_abi_f32", tier_counts["large_abi"],
+                     f32_large + rows_of("large_abi"))
+    pack_rows = abi_rows[:2] + [time_factor_solve(cl, abi.LYAP_PAD ** 2,
+                                                  PACK_LANES, device)]
+    timed += on_path("packed", pack_counts["f64"], pack_rows)
+    timed += on_path("packed_f32", pack_counts["f32-polish"],
+                     f32_abi + pack_rows)
     replaces = {
         "lu_factor": "pycatkin_tpu/ops/pallas_linalg.py:204",
         "lu_solve": "pycatkin_tpu/ops/pallas_linalg.py:219",
         "factor_solve": "pycatkin_tpu/ops/pallas_linalg.py:233",
     }
+    replaces.update({k + "_f32": v for k, v in replaces.items()})
     kernels = []
     for path, path_counts, r in timed:
         assert path_counts[r["name"]] > 0, (path, r["name"])
@@ -1638,20 +2000,34 @@ def run_phases(pool, pending, large) -> int:
             f"launches): n={r['n']} x {r['lanes']} lanes | kernel "
             f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms torch.linalg "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it) FP64 "
+            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it) "
+            f"{'FP32' if r['name'].endswith('_f32') else 'FP64'} "
             f"vector floor {r['vector_floor_ms']:.4f} ms | host "
             f"{r['host_us']:.1f} us a launch")
-    # Shapes on no path: the bucket-512 kernels, factor_solve at 256, 512.
+    # Shapes on no path: the bucket-512 kernels, factor_solve at 256, 512;
+    # the float32 builds of those and factor_solve_f32 at the float64
+    # paths' shapes (no path runs it: the certificate and DRC stay
+    # float64).
+    f32 = torch.float32
     off_path = time_lu(cl, 512, 256, device) + [
         time_factor_solve(cl, n, L_, device)
         for n, L_ in ((256, Lg), (512, 256))]
+    off_path += time_lu(cl, 512, 256, device, f32) + [
+        time_factor_solve(cl, n, L_, device, f32)
+        for n, L_ in ((abi.LYAP_PAD ** 2, L), (m * m, Lc), (g_dyn, Lg),
+                      (256, Lg), (512, 256))]
     for r in off_path:
         log(f"timing {r['name']} (no path): n={r['n']} x {r['lanes']} "
             f"lanes | kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"torch.linalg {r['library_ms']:.4f} ms bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) FP64 vector floor "
-            f"{r['vector_floor_ms']:.4f} ms | host {r['host_us']:.1f} us a "
-            f"launch | max abs err {r['max_abs_err']:.3e}")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) "
+            f"{'FP32' if r['name'].endswith('_f32') else 'FP64'} vector "
+            f"floor {r['vector_floor_ms']:.4f} ms | host "
+            f"{r['host_us']:.1f} us a launch | max abs err "
+            f"{r['max_abs_err']:.3e}")
+    # Phase 12's last CPU comparison: its re-run had phases 13-15 and the
+    # timings to finish.
+    parity()
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

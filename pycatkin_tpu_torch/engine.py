@@ -5,7 +5,8 @@ Composition of the kernel layers for a batch of conditions:
     free_energies      <- ops.thermo + scaling relations
     reaction_energies  <- stoichiometric sums
     rate_constants     <- ops.rates dispatch
-    steady_state       <- solvers.newton (PTC or LM, random restarts)
+    steady_state       <- solvers.newton (PTC or LM, random restarts; the
+                          f32-polish precision tier's float32 closures)
     transient          <- solvers.ode (TR-BDF2 or ESDIRK4), then a Newton
                           finish by steady_state
     steady_jacobian    <- torch.func.jacfwd of the dynamic residual
@@ -22,11 +23,13 @@ every function then takes that :class:`DeviceSpec` and a
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from . import precision
 from .constants import LOG_H_OVER_KB, R, bartoPa, eVtokJ, kB
 from .frontend.abi import AbiLowered
 from .frontend.spec import REACTOR_CSTR, Conditions, ModelSpec
@@ -337,14 +340,43 @@ class Closures(NamedTuple):
     y_base: torch.Tensor
 
 
-def closures(ds: DeviceSpec, cond: Conditions, kf, kr) -> Closures:
+def _cast_view(ds: DeviceSpec, dtype) -> DeviceSpec:
+    """A shallow copy of ``ds`` with every floating tensor in ``dtype``
+    (the JAX package's ``_cast_float_leaves``)."""
+    view = copy.copy(ds)
+    for name, v in vars(ds).items():
+        if torch.is_tensor(v) and v.is_floating_point():
+            setattr(view, name, v.to(dtype))
+    return view
+
+
+def closures(ds: DeviceSpec, cond: Conditions, kf, kr,
+             dtype=None) -> Closures:
+    """The closures of the lane batch ``cond`` over the rate constants
+    ``kf``, ``kr``. ``dtype`` (None: float64) evaluates them in another
+    type: the rate constants and reactor terms are computed in float64
+    (``exp(-Ea/kT)`` spans ~30 decades) and only the finished values,
+    with the spec's stoichiometry and masks, are cast down, as the JAX
+    package's ``_dynamic_fscale(dtype=...)`` does."""
     rt = reactor_terms(ds, cond)
-    y_base = cond.y0
-    args = (kf, kr, y_base, rt.sigma_over_bar, rt.inflow)
+    args = (kf, kr, cond.y0, rt.sigma_over_bar, rt.inflow)
+    if dtype is not None:
+        ds = _cast_view(ds, dtype)
+        args = tuple(a.to(dtype) for a in args)
     return Closures(
         fscale=lambda x: dynamic_fscale(ds, x, *args),
         jac=lambda x: residual_jacobian(ds, x, *args),
-        y_base=y_base)
+        y_base=args[2])
+
+
+def bulk_closures(ds: DeviceSpec, cond: Conditions, kf, kr, tier: str):
+    """``(fscale, jac)`` at the bulk dtype of the precision ``tier`` over
+    the same rate constants (:func:`closures`), or None under
+    ``"f64"``."""
+    if precision.check_tier(tier) == "f64":
+        return None
+    b = closures(ds, cond, kf, kr, dtype=precision.bulk_dtype(tier))
+    return b.fscale, b.jac
 
 
 def lane_subset(cond: Conditions, idx) -> Conditions:
@@ -355,7 +387,8 @@ def lane_subset(cond: Conditions, idx) -> Conditions:
 
 def steady_state(ds: DeviceSpec, cond: Conditions, x0=None, key=None,
                  opts: SolverOptions = SolverOptions(),
-                 strategy: str = "ptc") -> SteadyStateResults:
+                 strategy: str = "ptc",
+                 tier: str = "f64") -> SteadyStateResults:
     """Steady-state solve of every lane over the dynamic indices (gas
     clamped for the infinite-dilution reactor) by
     :func:`newton.solve_steady`.
@@ -364,9 +397,15 @@ def steady_state(ds: DeviceSpec, cond: Conditions, x0=None, key=None,
     ``key [L, 2]`` holds each lane's PRNG key for the random restarts
     of a multi-attempt solve (None: ``prng_key(0)`` for every lane);
     ``strategy`` is ``"ptc"`` or ``"lm"``. Each attempt after the first
-    runs only the lanes still failing."""
+    runs only the lanes still failing. ``tier``: the precision tier
+    (:mod:`.precision`); under ``"f32-polish"`` a single-attempt solve
+    marches on a second pair of closures at float32
+    (:func:`bulk_closures`) and polishes and judges in float64, while a
+    multi-attempt solve stays float64 (its ``lanes(idx)`` closures
+    are)."""
     kf, kr, _ = rate_constants(ds, cond)
     cl = closures(ds, cond, kf, kr)
+    bulk = bulk_closures(ds, cond, kf, kr, tier)
     if x0 is None:
         x0 = cl.y_base[..., ds.dyn]
 
@@ -377,7 +416,7 @@ def steady_state(ds: DeviceSpec, cond: Conditions, x0=None, key=None,
     (x, success, res, iters, attempts, rate_ok, pos_ok, sums_ok,
      dt_exit, chords) = newton.solve_steady(
         cl.fscale, cl.jac, x0.contiguous(), ds.groups_dyn, opts, key=key,
-        strategy=strategy, lanes=lanes)
+        strategy=strategy, lanes=lanes, tier=tier, bulk_fns=bulk)
     return SteadyStateResults(
         x=compose_state(ds, cl.y_base, x), success=success, residual=res,
         iterations=iters, attempts=attempts, rate_ok=rate_ok,

@@ -16,10 +16,11 @@ thermo masks; the activity sentinel ``n_s`` of the index tables becomes
 carry the residual ``F = -x`` (``dyn_mask``), so the padded Jacobian is
 ``blkdiag(J_real, -I)``.
 
-Only the single-mechanism lowering is ported. Packing several
-mechanisms of one bucket (``PackedLowered``) and the fingerprints and
-program-spec interning that key the JAX package's compile caches are
-not (ROADMAP Queue A item 11).
+Several mechanisms of one bucket pack into a :class:`PackedLowered`
+(:func:`pack_lowered`), the unit of the packed multi-tenant sweep
+(``parallel.batch.packed_sweep_steady_state``). The fingerprints and
+program-spec interning that key the JAX package's compile caches have
+nothing to key in an eager port and are not ported.
 """
 
 from __future__ import annotations
@@ -50,8 +51,10 @@ _BOUNDARY_MARGIN = 0.05   # validate.py warns within 5% of a bucket edge
 
 class AbiStatic(NamedTuple):
     """The bucket: padded species, reaction and dynamic dims plus the
-    two shape-deciding scalars. ``precision`` is always ``"f64"`` (the
-    port has no precision tiers)."""
+    two shape-deciding scalars. ``precision`` is always ``"f64"``: the
+    port's precision tier is a keyword of the sweep it runs
+    (``sweep_steady_state(..., tier=...)``), not a property of the
+    lowering, so one lowering serves both tiers."""
     abi_version: int
     n_species: int       # S (padded, includes the reserved pad slot)
     n_reactions: int     # R (padded)
@@ -321,6 +324,130 @@ def _pad_last(a, pad: int, fill):
         return a
     widths = [(0, 0)] * (a.ndim - 1) + [(0, pad)]
     return np.pad(a, widths, constant_values=np.asarray(fill, a.dtype))
+
+
+# ----------------------------------------------------------------------
+# multi-tenant packing
+
+# The padded-spec arrays that differ between the mechanisms of a bucket
+# (the JAX package's traced operands); host-only build-time fields and the
+# unpadded adsorbate / gas index lists are left out.
+OPERAND_FIELDS = (
+    "freq", "fmask", "mass", "sigma", "inertia", "is_gas", "is_linear",
+    "mix", "add0", "gvibr0", "gvibr_mask", "gtran0", "gtran_mask",
+    "grota0", "grota_mask", "gfree0", "gfree_mask",
+    "scl_idx", "scl_b", "scl_We", "scl_Ws", "scl_WuE",
+    "udar_mask", "udar_Ce", "udar_Cg", "udar_CuE", "udar_CuG",
+    "SR", "SP", "ST", "has_TS", "reversible", "is_ads", "is_des",
+    "is_ghost", "is_user", "area", "gas_mass", "gas_sigma",
+    "gas_inertia", "gas_polyatomic", "reac_idx", "prod_idx", "stoich",
+    "is_adsorbate", "dynamic_indices", "groups",
+)
+
+
+def _stack(leaves):
+    return np.stack([np.asarray(v) for v in leaves])
+
+
+class PackedLowered:
+    """K :class:`AbiLowered` mechanisms of one bucket on a leading
+    *tenant* axis: the unit the packed sweep runs as one lane batch.
+
+    ``k`` is the tenant count, ``k_bucket`` the next power of two and
+    ``occupancy = k / k_bucket``, as in the JAX package, whose ghost
+    tenants (replicas of tenant 0 up to ``k_bucket``) keep its compiled
+    shapes a small family. The port compiles nothing per shape, so it
+    computes no ghost tenant: everything stacked here has ``k`` entries,
+    and ``k_bucket`` and ``occupancy`` are kept for parity only.
+    :meth:`operands` stacks the tenants' padded spec arrays and lowering
+    operands; :meth:`stack_tenants` and the pad helpers stack per-tenant
+    inputs (numpy) the same way."""
+
+    def __init__(self, lows):
+        lows = tuple(lows)
+        if not lows:
+            raise AbiBucketError([("pack", "cannot pack zero tenants")])
+        issues = []
+        for i, low in enumerate(lows):
+            if not isinstance(low, AbiLowered):
+                issues.append((f"tenant {i}",
+                               f"not an AbiLowered (got "
+                               f"{type(low).__name__}); lower each "
+                               f"mechanism with lower_spec/maybe_lower "
+                               f"first"))
+            elif low.static != lows[0].static:
+                issues.append((f"tenant {i}",
+                               f"bucket {tuple(low.static)} != tenant 0's "
+                               f"{tuple(lows[0].static)}; only same-bucket "
+                               f"mechanisms can be packed"))
+        if issues:
+            raise AbiBucketError(issues)
+        self.tenants = lows
+        self.k = len(lows)
+        self.k_bucket = _pow2_at_least(self.k)
+        self.static = lows[0].static
+
+    @property
+    def occupancy(self) -> float:
+        """Tenants over the power-of-two tenant bucket."""
+        return self.k / self.k_bucket
+
+    def operands(self) -> dict:
+        """The padded specs' :data:`OPERAND_FIELDS`, and ``dyn_mask``,
+        ``lyap_q`` and ``lyap_ok``, stacked on a leading ``[k]`` tenant
+        axis (numpy)."""
+        out = {name: _stack(getattr(low.spec_padded, name)
+                            for low in self.tenants)
+               for name in OPERAND_FIELDS}
+        for name in ("dyn_mask", "lyap_q", "lyap_ok"):
+            out[name] = _stack(getattr(low, name) for low in self.tenants)
+        return out
+
+    def stack_tenants(self, per_tenant):
+        """Stack ``k`` per-tenant values (arrays, or :class:`Conditions`
+        field by field, already padded to the bucket) on a leading tenant
+        axis; all None gives None."""
+        per_tenant = list(per_tenant)
+        if len(per_tenant) != self.k:
+            raise ValueError(f"expected {self.k} per-tenant values, got "
+                             f"{len(per_tenant)}")
+        if all(v is None for v in per_tenant):
+            return None
+        if any(v is None for v in per_tenant):
+            raise ValueError("per-tenant inputs must be all present or all "
+                             "None across the pack")
+        if isinstance(per_tenant[0], Conditions):
+            return Conditions(*(_stack(f) for f in zip(*per_tenant)))
+        return _stack(per_tenant)
+
+    def pad_conditions(self, conds_list) -> Conditions:
+        """Each tenant's conditions padded to the bucket, then stacked:
+        ``[k, lanes, bucket dims]`` fields."""
+        return self.stack_tenants(
+            [low.pad_conditions(c) for low, c in zip(self.tenants,
+                                                     conds_list)])
+
+    def pad_tof_mask(self, masks):
+        if masks is None or all(m is None for m in masks):
+            return None
+        return self.stack_tenants(
+            [low.pad_tof_mask(m) for low, m in zip(self.tenants, masks)])
+
+    def pad_x0(self, x0s):
+        if x0s is None or all(x is None for x in x0s):
+            return None
+        return self.stack_tenants(
+            [low.pad_x0(x) for low, x in zip(self.tenants, x0s)])
+
+    def unpad_y(self, y, tenant: int):
+        """Strip pad species from tenant ``tenant``'s composition axis."""
+        return self.tenants[tenant].unpad_y(y)
+
+
+def pack_lowered(lows) -> PackedLowered:
+    """Pack K lowered mechanisms of one ABI bucket; raises
+    :class:`AbiBucketError` when they span buckets."""
+    return PackedLowered(lows)
 
 
 def lower_spec(spec: ModelSpec) -> AbiLowered:

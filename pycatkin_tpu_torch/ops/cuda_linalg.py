@@ -16,17 +16,23 @@ factor_solve    ``pallas_linalg.factor_solve`` (``_factor_solve_kernel``)
 
 Shapes carry an explicit lane dimension: ``A`` is ``[L, n, n]``, a
 right-hand side ``[L, n]`` or ``[L, n, k]``, ``perm`` ``[L, n]`` int32.
-Every wrapper checks device, dtype (float64), shape and contiguity, then
-sends a CPU tensor to the plain version (``*_ref``, the same arithmetic
-in plain PyTorch) and a CUDA tensor to the kernel. A CUDA tensor is
+The element type is float64 or float32 (the Pallas kernels take any
+float type; the port's f32-polish precision tier runs its bulk march in
+float32), and a right-hand side must have the matrix's. Every wrapper
+checks device, dtype, shape and contiguity, then sends a CPU tensor to
+the plain version (``*_ref``, the same arithmetic in plain PyTorch, in
+the tensor's type) and a CUDA tensor to the kernel (``pk_*`` in float64,
+``pk_*_f32`` in float32: one templated source). A CUDA tensor is
 never served by the plain version: a kernel that cannot launch raises.
-Each launch adds one to :data:`LAUNCHES`.
+Each launch adds one to :data:`LAUNCHES` (float64) or
+:data:`LAUNCHES_F32` (float32).
 
 The kernels serve every n (``csrc/linalg.cu``). At n = 16 and 32 all
 three take the warp tier: a half-warp or warp per lane with rows in
 registers, the substitutions by shuffles. Off it, ``lu_factor`` and
 ``factor_solve`` take the resident tier while two lanes fit an SM's
-shared memory (n <= 119 at k = 1 on an H100): one block per lane factors
+shared memory (n <= 119 at k = 1 on an H100 in float64, n <= 168 in
+float32): one block per lane factors
 the matrix in shared memory 32 columns at a time, the trailing updates
 in register tiles; beyond that the panel tier, faster there on an H100,
 factors it the same way in device memory (in ``LU`` itself, or in a
@@ -37,9 +43,9 @@ column. Every tier keeps each entry's updates in the plain version's
 order, so LU and perm are the plain version's bit for bit and
 ``lu_solve(*lu_factor(A), b)`` is ``factor_solve(A, b)`` bit for bit.
 Off the warp tier the k right-hand sides stay in shared memory:
-``n * k * 8`` bytes (plus ``4 n`` for ``factor_solve``) must fit that
-limit (k <= 56 at n = 512 on an H100); a larger k is refused, and the
-wrapper raises.
+``n * k`` elements (plus ``4 n`` bytes for ``factor_solve``) must fit
+that limit (k <= 56 at n = 512 in float64 on an H100, 112 in float32); a
+larger k is refused, and the wrapper raises.
 
 The kernels are compiled from the package's own source on first use
 (``nvcc`` for ``sm_90a`` into ``build/pycatkin_tpu_torch/`` beside the
@@ -58,8 +64,11 @@ from pathlib import Path
 
 import torch
 
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
+#: Float64 kernel launches per wrapper since the last
+#: :func:`reset_launches`.
 LAUNCHES = {"lu_factor": 0, "lu_solve": 0, "factor_solve": 0}
+#: The same for the float32 kernels.
+LAUNCHES_F32 = dict(LAUNCHES)
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "linalg.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
@@ -69,11 +78,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIB = None
 
+#: The C entry points' suffix for each element type the kernels take.
+_SUFFIX = {torch.float64: "", torch.float32: "_f32"}
+
 
 def reset_launches() -> None:
     """Set every launch counter to 0."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counter in (LAUNCHES, LAUNCHES_F32):
+        for k in counter:
+            counter[k] = 0
+
+
+def _count(name, dtype) -> None:
+    (LAUNCHES if dtype == torch.float64 else LAUNCHES_F32)[name] += 1
 
 
 def _nvcc() -> str:
@@ -123,22 +140,32 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.pk_lu_factor.argtypes = [vp, vp, vp, ll, ci, vp]
-        lib.pk_lu_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
-        lib.pk_factor_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
-        lib.pk_factor_solve_workspace.argtypes = [ci, ci]
-        for fn in (lib.pk_lu_factor, lib.pk_lu_solve, lib.pk_factor_solve):
-            fn.restype = ci
-        lib.pk_factor_solve_workspace.restype = ll
+        for sfx in _SUFFIX.values():
+            fac = getattr(lib, "pk_lu_factor" + sfx)
+            sol = getattr(lib, "pk_lu_solve" + sfx)
+            fs = getattr(lib, "pk_factor_solve" + sfx)
+            ws = getattr(lib, "pk_factor_solve_workspace" + sfx)
+            fac.argtypes = [vp, vp, vp, ll, ci, vp]
+            sol.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
+            fs.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
+            ws.argtypes = [ci, ci]
+            for fn in (fac, sol, fs):
+                fn.restype = ci
+            ws.restype = ll
         _LIB = lib
     return _LIB
+
+
+def _entry(name, dtype):
+    """The C entry point ``name`` for elements of ``dtype``."""
+    return getattr(_lib(), name + _SUFFIX[dtype])
 
 
 # ----------------------------------------------------------------------
 # argument checks
 def _check_matrix(name, A):
-    if A.dtype != torch.float64:
-        raise TypeError(f"{name}: float64 only, got {A.dtype}")
+    if A.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: float64 or float32 only, got {A.dtype}")
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"{name}: expected [lanes, n, n], got "
                          f"{tuple(A.shape)}")
@@ -147,8 +174,9 @@ def _check_matrix(name, A):
 
 
 def _check_rhs(name, A, b):
-    if b.dtype != torch.float64:
-        raise TypeError(f"{name}: float64 only, got {b.dtype}")
+    if b.dtype != A.dtype:
+        raise TypeError(f"{name}: right-hand side of type {b.dtype} for a "
+                        f"{A.dtype} matrix")
     if b.device != A.device:
         raise ValueError(f"{name}: operands on {A.device} and {b.device}")
     ok = (b.dim() in (2, 3) and b.shape[0] == A.shape[0]
@@ -234,9 +262,9 @@ def factor_solve_ref(A, b):
 # ----------------------------------------------------------------------
 # wrappers
 def lu_factor(A):
-    """Partial-pivoted LU of every lane of ``A [L, n, n]`` float64.
-    Returns ``(LU, perm)`` in ``pallas_linalg.lu_factor``'s convention;
-    ``perm`` is int32."""
+    """Partial-pivoted LU of every lane of ``A [L, n, n]`` (float64 or
+    float32). Returns ``(LU, perm)`` in ``pallas_linalg.lu_factor``'s
+    convention; ``perm`` is int32."""
     _check_matrix("lu_factor", A)
     if not _route("lu_factor", A):
         return lu_factor_ref(A)
@@ -245,12 +273,12 @@ def lu_factor(A):
     perm = torch.empty((L, n), dtype=torch.int32, device=A.device)
     if L == 0:
         return LU, perm
-    lib = _lib()
+    fn = _entry("pk_lu_factor", A.dtype)
     with torch.cuda.device(A.device):
-        err = lib.pk_lu_factor(A.data_ptr(), LU.data_ptr(), perm.data_ptr(),
-                               L, n, _stream(A))
+        err = fn(A.data_ptr(), LU.data_ptr(), perm.data_ptr(), L, n,
+                 _stream(A))
     _raise_on("lu_factor", err)
-    LAUNCHES["lu_factor"] += 1
+    _count("lu_factor", A.dtype)
     return LU, perm
 
 
@@ -270,12 +298,12 @@ def lu_solve(LU, perm, b):
     x = torch.empty_like(b)
     if L == 0:
         return x
-    lib = _lib()
+    fn = _entry("pk_lu_solve", LU.dtype)
     with torch.cuda.device(LU.device):
-        err = lib.pk_lu_solve(LU.data_ptr(), perm.data_ptr(), b.data_ptr(),
-                              x.data_ptr(), L, n, k, _stream(LU))
+        err = fn(LU.data_ptr(), perm.data_ptr(), b.data_ptr(), x.data_ptr(),
+                 L, n, k, _stream(LU))
     _raise_on("lu_solve", err)
-    LAUNCHES["lu_solve"] += 1
+    _count("lu_solve", LU.dtype)
     return x
 
 
@@ -292,14 +320,13 @@ def factor_solve(A, b):
     x = torch.empty_like(b)
     if L == 0:
         return x
-    lib = _lib()
     with torch.cuda.device(A.device):
-        per_lane = lib.pk_factor_solve_workspace(n, k)
+        per_lane = _entry("pk_factor_solve_workspace", A.dtype)(n, k)
         work = torch.empty(L * per_lane, dtype=A.dtype, device=A.device) \
             if per_lane else None
-        err = lib.pk_factor_solve(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                  None if work is None else work.data_ptr(),
-                                  L, n, k, _stream(A))
+        err = _entry("pk_factor_solve", A.dtype)(
+            A.data_ptr(), b.data_ptr(), x.data_ptr(),
+            None if work is None else work.data_ptr(), L, n, k, _stream(A))
     _raise_on("factor_solve", err)
-    LAUNCHES["factor_solve"] += 1
+    _count("factor_solve", A.dtype)
     return x

@@ -21,6 +21,11 @@ settle the ambiguous lanes by a host eigensolve, or hand the sweep to
 (neighbor-seeded polish, the full PTC solve, LM), the quarantine
 re-check, the stability verdict and up to three rounds of unseeded
 re-solves of the lanes it demotes, then TOF and activity.
+:func:`packed_sweep_steady_state` runs K mechanisms of one ABI bucket as
+one lane batch (one PTC march, one bundle sync), each tenant's result
+its solo sweep's. Under ``tier="f32-polish"`` the fast pass marches in
+float32 and polishes and judges in float64 (:mod:`..precision`); the
+screen, the certificate, TOF and the rescue tail stay float64.
 :func:`batch_steady_state`, :func:`continuation_sweep`,
 :func:`stability_mask` and :func:`stack_conditions` are the JAX
 package's entries of the same names,
@@ -36,12 +41,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import engine
+from .. import engine, precision
 from ..frontend import abi as _abi
 from ..frontend.spec import Conditions, ModelSpec
 from ..ops import prng
 from ..solvers import ode
 from ..solvers.ode import ODEOptions
+from ..solvers import newton
 from ..solvers.newton import (LYAPUNOV_MAX_DIM, STRATEGY_CODES,
                               SolverOptions, SteadyStateResults,
                               deflation_basis_for_spec,
@@ -117,13 +123,31 @@ def stability_screen(ds: engine.DeviceSpec, conds: Conditions, ys,
     return cert, finite
 
 
+def _tier_column(succ0, tier: str):
+    """The telemetry's tier column of a first pass: the tier's code on
+    the lanes it accepted, 0 elsewhere."""
+    code = torch.tensor(precision.TIER_CODES[tier], dtype=torch.int32,
+                        device=succ0.device)
+    return torch.where(succ0, code, torch.zeros_like(code))
+
+
 def _fused(ds: engine.DeviceSpec, conds: Conditions, tof_mask, x0,
-           opts: SolverOptions, pos_tol: float, check_stability: bool):
+           opts: SolverOptions, pos_tol: float, check_stability: bool,
+           tier: str = "f64"):
     """:func:`fused_sweep` on an already bound spec and device
     conditions, from the initial guess ``x0`` (None: ``conds.y0``),
     with or without the stability screen (without it, ``cert`` and
     ``amb`` are absent and the bundle reports -1 for their counts)."""
-    res = engine.steady_state(ds, conds, x0=x0, opts=opts)
+    res = engine.steady_state(ds, conds, x0=x0, opts=opts, tier=tier)
+    return _fused_tail(ds, conds, res, tof_mask, pos_tol, check_stability,
+                       tier)
+
+
+def _fused_tail(ds: engine.DeviceSpec, conds: Conditions,
+                res: SteadyStateResults, tof_mask, pos_tol: float,
+                check_stability: bool, tier: str):
+    """Everything :func:`_fused` computes after the steady solve ``res``:
+    quarantine, screen, TOF, telemetry, bundle."""
     finite_l = lane_finite_mask(res.x, res.residual)
     succ_raw = res.success
     quar = succ_raw & ~finite_l
@@ -151,7 +175,8 @@ def _fused(ds: engine.DeviceSpec, conds: Conditions, tof_mask, x0,
         n_neg = torch.sum(lane_ok & (tofs < 0.0))
         outs += [tofs, act, neg]
     outs.append(packed_lane_telemetry(res.iterations, res.chords,
-                                      res.residual, tier=0))
+                                      res.residual,
+                                      tier=_tier_column(succ0, tier)))
     outs.append(packed_sweep_diagnostics(succ0, quar, amb, demoted, n_neg))
     return tuple(outs)
 
@@ -170,7 +195,7 @@ def _bind(spec, conds: Conditions, x0, device):
 
 def fused_sweep(spec, conds: Conditions, tof_mask=None,
                 opts: SolverOptions | None = None, pos_tol: float = 1e-2,
-                device=None):
+                device=None, tier: str = "f64"):
     """The clean sweep of ``spec`` over the lane batch ``conds`` (every
     field with a leading lane dimension).
 
@@ -182,7 +207,8 @@ def fused_sweep(spec, conds: Conditions, tof_mask=None,
     ``fast_pass_opts(SolverOptions())``; ``max_attempts`` must be 1 (the
     fast pass draws no random numbers). ``tof_mask [n_r]`` selects the
     TOF steps (None: no TOF/activity). ``device=None`` runs on the CUDA
-    card and raises without one; pass ``"cpu"`` for the CPU.
+    card and raises without one; pass ``"cpu"`` for the CPU. ``tier``:
+    the precision tier of the steady solve (:mod:`..precision`).
 
     Returns, in the JAX program's order (with ``check_stability``):
     ``res`` (:class:`SteadyStateResults`, success already
@@ -194,8 +220,9 @@ def fused_sweep(spec, conds: Conditions, tof_mask=None,
     checks (:data:`solvers.newton.SYNCS`)."""
     if opts is None:
         opts = fast_pass_opts(SolverOptions())
+    precision.check_tier(tier)
     ds, conds, x0 = _bind(spec, conds, None, device)
-    return _fused(ds, conds, tof_mask, x0, opts, pos_tol, True)
+    return _fused(ds, conds, tof_mask, x0, opts, pos_tol, True, tier)
 
 
 def _warn_negative_tof(neg: int) -> None:
@@ -411,12 +438,15 @@ def _rescue(ds: engine.DeviceSpec, conds: Conditions,
     return res._replace(success=succ, **fields), n_remaining
 
 
-def _host_lane_telemetry(res: SteadyStateResults, quar, strategy_codes):
+def _host_lane_telemetry(res: SteadyStateResults, quar, strategy_codes,
+                         first_pass_tier: int = 0):
     """The ``[L, 5]`` int32 lane telemetry of a sweep that ran the
     rescue ladder, built on the host as the JAX package's failure path
     builds it: the strategy column holds each lane's ladder code (6 on a
-    quarantined lane); the tier column is 0 (the port runs f64 only).
-    Returned on the device of ``res``."""
+    quarantined lane); the tier column holds ``first_pass_tier``, the
+    first pass's tier code, on the lanes that pass accepted (converged,
+    strategy 0) and 0 on every other (the ladder is float64). Returned
+    on the device of ``res``."""
     it = res.iterations.cpu().numpy().astype(np.int32)
     ch = res.chords.cpu().numpy().astype(np.int32)
     r = res.residual.cpu().numpy().astype(np.float64)
@@ -429,7 +459,9 @@ def _host_lane_telemetry(res: SteadyStateResults, quar, strategy_codes):
                      np.int32(STRATEGY_CODES["quarantine"]),
                      np.asarray(strategy_codes, dtype=np.int32))
     strat = strat.astype(np.int32)
-    tcol = np.zeros_like(strat)
+    ok = res.success.cpu().numpy().astype(bool)
+    tcol = np.where(ok & (strat == 0), np.int32(first_pass_tier),
+                    np.int32(0)).astype(np.int32)
     return torch.as_tensor(np.stack([it, ch, dec, strat, tcol], axis=-1),
                            device=res.x.device)
 
@@ -449,7 +481,7 @@ def _tof_activity(ds: engine.DeviceSpec, conds: Conditions, ys, tof_mask,
 def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
                   res: SteadyStateResults, opts: SolverOptions, tof_mask,
                   check_stability: bool, pos_tol: float,
-                  screen=None) -> dict:
+                  screen=None, tier: str = "f64") -> dict:
     """The sweep tail after the first solving pass (the JAX package's
     ``_finish_sweep``): the quarantine, then -- on a clean pass -- the
     result as is, else the rescue ladder (neighbor-seeded polish, the
@@ -459,7 +491,9 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
     failed lane is re-solved unseeded and the verdict taken again; last,
     TOF and activity with ``ok = success & stable``. ``screen``: the
     ``(certified, ambiguous)`` tier-0 screen of ``res`` already computed
-    (the fused sweep's). Returns the result dict."""
+    (the fused sweep's). ``tier``: the precision tier of the first pass,
+    whose code the telemetry's tier column carries on the lanes that pass
+    accepted. Returns the result dict."""
     has_tof = tof_mask is not None
     res, quar = _quarantine_mask(res)
     nf = int((~res.success).sum())
@@ -481,7 +515,8 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
             tofs, act, n_neg = _tof_activity(ds, conds, res.x, tof_mask,
                                              ok)
         tel = packed_lane_telemetry(res.iterations, res.chords,
-                                    res.residual, tier=0)
+                                    res.residual,
+                                    tier=_tier_column(res.success, tier))
         return _assemble_clean(res, quar, cert, tofs, act, check_stability,
                                has_tof, n_neg, tel)
 
@@ -520,7 +555,8 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
         v = getattr(res, name, None)
         if v is not None:
             out[name] = v
-    out["lane_telemetry"] = _host_lane_telemetry(res, quar, strat)
+    out["lane_telemetry"] = _host_lane_telemetry(
+        res, quar, strat, precision.TIER_CODES[tier])
     if check_stability:
         out["stable"] = stable
         out["success"] = res.success & stable
@@ -532,11 +568,13 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
 
 
 def _decide(ds, conds, outs, opts: SolverOptions, tof_mask,
-            check_stability: bool, pos_tol: float) -> dict:
+            check_stability: bool, pos_tol: float, tier: str = "f64",
+            counts=None) -> dict:
     """The JAX package's ``_fused_decide`` on the fused outputs: one
-    host sync of the bundle decides between the clean assembly, the
-    tier-2-only escalation and the rescue tail (:func:`_finish_sweep`,
-    from the raw fast-pass result)."""
+    host sync of the bundle (``counts``: its values, already pulled)
+    decides between the clean assembly, the tier-2-only escalation and
+    the rescue tail (:func:`_finish_sweep`, from the raw fast-pass
+    result)."""
     has_tof = tof_mask is not None
     res, quar = outs[0], outs[1]
     pos = 2
@@ -548,7 +586,10 @@ def _decide(ds, conds, outs, opts: SolverOptions, tof_mask,
     if has_tof:
         tofs, act, neg = outs[pos:pos + 3]
     lane_tel, bundle = outs[-2], outs[-1]
-    nf, nq, n_amb, n_dem, n_neg = (int(c) for c in bundle.cpu().tolist())
+    if counts is None:
+        newton.SYNCS["sweep_bundle"] += 1
+        counts = bundle.cpu().tolist()
+    nf, nq, n_amb, n_dem, n_neg = (int(c) for c in counts)
 
     if nf == 0 and (not check_stability or (n_amb == 0 and n_dem == 0)):
         return _assemble_clean(res, quar, cert, tofs, act,
@@ -566,7 +607,8 @@ def _decide(ds, conds, outs, opts: SolverOptions, tof_mask,
     res_raw = res._replace(success=res.success | quar)
     return _finish_sweep(ds, conds, res_raw, opts, tof_mask,
                          check_stability, pos_tol,
-                         screen=(cert, amb) if check_stability else None)
+                         screen=(cert, amb) if check_stability else None,
+                         tier=tier)
 
 
 def _no_mesh(entry: str, mesh) -> None:
@@ -579,7 +621,7 @@ def sweep_steady_state(spec: ModelSpec, conds: Conditions, tof_mask=None,
                        x0=None, opts: SolverOptions = SolverOptions(),
                        mesh=None, check_stability: bool = False,
                        pos_jac_tol: float = 1e-2, abi: bool = False,
-                       device=None) -> dict:
+                       device=None, tier: str = "f64") -> dict:
     """Steady state and optional TOF for every lane: the one-call sweep.
 
     Returns a dict with ``y [lanes, n_s]``, ``success``, ``residual``,
@@ -596,43 +638,206 @@ def sweep_steady_state(spec: ModelSpec, conds: Conditions, tof_mask=None,
     ``abi=True`` lowers the mechanism into its ABI bucket first (the
     JAX package's ``PYCATKIN_ABI=1``) and runs the padded system, so
     the direction and certificate solves take the bucket-size kernels;
-    a mechanism that fits no bucket warns and runs unpadded.
+    a mechanism that fits no bucket warns and runs unpadded; an
+    :class:`~..frontend.abi.AbiLowered` ``spec`` runs as lowered (with
+    unpadded ``conds``, ``tof_mask`` and ``x0``).
     ``device=None`` runs on the CUDA card; pass ``"cpu"`` for the CPU.
+    ``tier``: the precision tier of the fast pass (``"f64"`` or
+    ``"f32-polish"``, :mod:`..precision`): under ``"f32-polish"`` it
+    marches in float32, polishes in float64 and takes the float64
+    verdict, and the telemetry's tier column carries code 1 on the lanes
+    it accepted; the screen, the certificate, TOF and the rescue ladder
+    stay float64, so the verdicts are the float64 sweep's.
     ``mesh`` (multi-device lane sharding) is not ported and must be
     None."""
     _no_mesh("sweep_steady_state", mesh)
-    low = _abi.maybe_lower(spec) if abi else None
+    precision.check_tier(tier)
+    low = spec if isinstance(spec, _abi.AbiLowered) else \
+        _abi.maybe_lower(spec) if abi else None
     if low is not None:
         spec, conds = low, low.pad_conditions(conds)
         tof_mask, x0 = low.pad_tof_mask(tof_mask), low.pad_x0(x0)
     ds, conds, x0 = _bind(spec, conds, x0, device)
     outs = _fused(ds, conds, tof_mask, x0, fast_pass_opts(opts),
-                  pos_jac_tol, check_stability)
+                  pos_jac_tol, check_stability, tier)
     out = _decide(ds, conds, outs, opts, tof_mask, check_stability,
-                  pos_jac_tol)
+                  pos_jac_tol, tier)
     if low is not None:
         out["y"] = low.unpad_y(out["y"])
     return out
 
 
+def _lane_closures(fns):
+    """One closure over a tenant-major lane batch from the K tenants'
+    closures ``fns``: each evaluates a fresh copy of its tenant's block of
+    lanes (as its solo batch would: see ``newton._per_tenant``), the
+    results (a tensor, or a pair) concatenated along the lanes."""
+    K = len(fns)
+
+    def call(x):
+        outs = [f(xk.clone()) for f, xk in zip(fns, x.chunk(K))]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+    return call
+
+
+def _stack_tenants(ts):
+    """The tenants' tensors (one shape, one dense layout) on a new leading
+    axis, each slice laid out as its source: a solo batch uses its groups
+    as they are (``DeviceSpec.groups_dyn`` is column-major), and cuBLAS
+    takes another kernel, with another float32 rounding on an H100, for
+    the transposed layout of the same group sums."""
+    t0 = ts[0]
+    out = torch.empty_strided((len(ts),) + tuple(t0.shape),
+                              (t0.numel(),) + t0.stride(), dtype=t0.dtype,
+                              device=t0.device)
+    for o, t in zip(out, ts):
+        o.copy_(t)
+    return out
+
+
+def _packed_fast_pass(dss, conds, x0s, opts: SolverOptions, tier: str):
+    """The single-attempt solve of K bound tenants (same bucket, same
+    lane count) as one lane batch, tenant-major: each tenant's rate
+    constants, closures and (under ``f32-polish``) bulk closures are its
+    solo sweep's, evaluated on its block of lanes; the march, its
+    any-lane-active syncs and its kernel launches are shared, and the
+    groups are stacked ``[K, n_g, n]`` (see ``solvers.newton``). Returns
+    each tenant's :class:`SteadyStateResults` (copies of its lanes of the
+    batch's per-lane tensors, states composed per tenant)."""
+    K = len(dss)
+    fs, js, bulk, x0 = [], [], [], []
+    for ds, c, x in zip(dss, conds, x0s):
+        kf, kr, _ = engine.rate_constants(ds, c)
+        cl = engine.closures(ds, c, kf, kr)
+        fs.append(cl.fscale)
+        js.append(cl.jac)
+        bulk.append(engine.bulk_closures(ds, c, kf, kr, tier))
+        x0.append(cl.y_base[..., ds.dyn] if x is None else x)
+    bulk_fns = None if bulk[0] is None else (
+        _lane_closures([b[0] for b in bulk]),
+        _lane_closures([b[1] for b in bulk]))
+    out = newton.solve_steady(
+        _lane_closures(fs), _lane_closures(js), torch.cat(x0).contiguous(),
+        _stack_tenants([ds.groups_dyn for ds in dss]), opts, tier=tier,
+        bulk_fns=bulk_fns)
+    per = [t.chunk(K) for t in out]
+    return [SteadyStateResults(engine.compose_state(ds, c.y0, per[0][k]),
+                               *(p[k].clone() for p in per[1:]))
+            for k, (ds, c) in enumerate(zip(dss, conds))]
+
+
+def _packed_fused(dss, conds, masks, x0s, opts: SolverOptions,
+                  pos_tol: float, check_stability: bool, tier: str):
+    """The packed fast pass, each tenant's fused tail (quarantine, screen,
+    TOF, telemetry, bundle) on its own results, ONE sync of the K
+    bundles, then each tenant's :func:`_decide`: a clean tenant assembles
+    from its slices, a dirty one escalates through its own solo tail
+    without touching its co-tenants' results."""
+    res = _packed_fast_pass(dss, conds, x0s, fast_pass_opts(opts), tier)
+    outs = [_fused_tail(ds, c, r, m, pos_tol, check_stability, tier)
+            for ds, c, r, m in zip(dss, conds, res, masks)]
+    newton.SYNCS["sweep_bundle"] += 1
+    counts = torch.stack([o[-1] for o in outs]).cpu().tolist()
+    return [_decide(ds, c, o, opts, m, check_stability, pos_tol, tier,
+                    counts=n)
+            for ds, c, o, m, n in zip(dss, conds, outs, masks, counts)]
+
+
+def packed_sweep_steady_state(specs, conds, tof_mask=None, x0=None,
+                              opts: SolverOptions = SolverOptions(),
+                              check_stability: bool = False,
+                              pos_jac_tol: float = 1e-2, tier: str = "f64",
+                              device=None) -> list:
+    """Multi-tenant :func:`sweep_steady_state` (the JAX package's
+    ``packed_sweep_steady_state``): K mechanisms that lower into one ABI
+    bucket run their fast pass as one lane batch (one PTC march, one
+    kernel launch a step, one bundle sync) and come back as a list of
+    per-tenant result dicts, each equal to that mechanism's solo
+    ``sweep_steady_state(..., abi=True)`` (``torch.equal`` on every key;
+    ``y`` unpadded).
+
+    ``conds`` / ``tof_mask`` / ``x0`` are one value shared by every
+    tenant or a sequence of one per tenant; the tenants must share a lane
+    count. ``tof_mask`` and ``x0`` are given for every tenant or for
+    none. One tenant runs its solo sweep; a mechanism that fits no bucket
+    sends every tenant to its solo sweep; tenants of different buckets
+    raise :class:`~..frontend.abi.AbiBucketError`. ``tier`` and
+    ``device`` as for :func:`sweep_steady_state`."""
+    precision.check_tier(tier)
+    specs = list(specs)
+    k = len(specs)
+    if k == 0:
+        return []
+
+    def per_tenant(v, name):
+        shared = not isinstance(v, (list, tuple)) or isinstance(v,
+                                                                Conditions)
+        vs = [v] * k if shared else list(v)
+        if len(vs) != k:
+            raise ValueError(f"{name}: {len(vs)} entries for {k} tenants")
+        return vs
+
+    conds_list = per_tenant(conds, "conds")
+    masks = per_tenant(tof_mask, "tof_mask")
+    x0s = per_tenant(x0, "x0")
+
+    def solo(specs):
+        # An AbiLowered runs as lowered; a spec that fits no bucket (its
+        # maybe_lower warned) runs unpadded.
+        return [sweep_steady_state(s, c, m, x, opts=opts,
+                                   check_stability=check_stability,
+                                   pos_jac_tol=pos_jac_tol, device=device,
+                                   tier=tier)
+                for s, c, m, x in zip(specs, conds_list, masks, x0s)]
+
+    lows = [s if isinstance(s, _abi.AbiLowered) else _abi.maybe_lower(s)
+            for s in specs]
+    if k == 1 or any(low is None for low in lows):
+        return solo([s if low is None else low
+                     for s, low in zip(specs, lows)])
+    _abi.pack_lowered(lows)
+    lanes = [len(c.T) for c in conds_list]
+    if len(set(lanes)) != 1:
+        raise ValueError(f"packed tenants must share a lane count, got "
+                         f"{lanes}")
+    for name, vals in (("tof_mask", masks), ("x0", x0s)):
+        if len({v is None for v in vals}) != 1:
+            raise ValueError(f"{name} must be given for every tenant or "
+                             f"none")
+    bound = [_bind(low, low.pad_conditions(c), low.pad_x0(x), device)
+             for low, c, x in zip(lows, conds_list, x0s)]
+    dss, conds_t, x0_t = (list(v) for v in zip(*bound))
+    outs = _packed_fused(dss, conds_t,
+                         [low.pad_tof_mask(m) for low, m in zip(lows, masks)],
+                         x0_t, opts, pos_jac_tol, check_stability, tier)
+    for low, out in zip(lows, outs):
+        out["y"] = low.unpad_y(out["y"])
+    return outs
+
+
 def batch_steady_state(spec: ModelSpec, conds: Conditions, x0=None,
                        opts: SolverOptions = SolverOptions(), mesh=None,
-                       abi: bool = False,
-                       device=None) -> SteadyStateResults:
+                       abi: bool = False, device=None,
+                       tier: str = "f64") -> SteadyStateResults:
     """Solve the steady state of every lane in one call (the JAX
     package's ``batch_steady_state``): ``engine.steady_state`` at
     ``opts`` with lane ``i`` keyed by row ``i`` of ``split(prng_key(0),
     lanes)``. ``x0``: optional ``[lanes, n_dyn]`` initial guesses;
     ``abi`` lowers into the ABI bucket first (``y`` comes back
-    unpadded). Returns a lane-batched :class:`SteadyStateResults` on
-    the device; ``mesh`` must be None."""
+    unpadded). ``tier`` is the precision tier, which only a
+    single-attempt ``opts`` uses (see ``engine.steady_state``). Returns a
+    lane-batched :class:`SteadyStateResults` on the device; ``mesh`` must
+    be None."""
     _no_mesh("batch_steady_state", mesh)
     low = _abi.maybe_lower(spec) if abi else None
     if low is not None:
         spec, conds, x0 = low, low.pad_conditions(conds), low.pad_x0(x0)
     ds, conds, x0 = _bind(spec, conds, x0, device)
     keys = prng.split(prng.prng_key(0, ds.device), len(conds.T))
-    res = engine.steady_state(ds, conds, x0=x0, key=keys, opts=opts)
+    res = engine.steady_state(ds, conds, x0=x0, key=keys, opts=opts,
+                              tier=tier)
     if low is not None:
         res = res._replace(x=low.unpad_y(res.x))
     return res

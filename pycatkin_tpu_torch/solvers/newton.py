@@ -6,8 +6,10 @@ the packed telemetry and the tier-0 Lyapunov stability certificate.
 
 One PTC attempt solves ``(I/dt - J) dx = F(x)``, ``x += dx``, with ``dt``
 adapted by the ratio of successive residual norms; ``dt -> inf``
-recovers Newton. The JAX package runs it as ``vmap(lax.while_loop)``;
-here it is one loop over all lanes with an active mask, which is exactly
+recovers Newton. Under the ``"f32-polish"`` precision tier the fast pass
+marches in float32 and polishes in float64 (:func:`solve_steady`). The
+JAX package runs it as ``vmap(lax.while_loop)``; here it is one loop
+over all lanes with an active mask, which is exactly
 that batching rule: every iteration computes the body for every lane and
 keeps the old state (``x``, ``F``, ``dt``, ``fnorm``, ``k``, the chord
 counter) where a lane is done. No arithmetic crosses lanes. Deciding on
@@ -15,6 +17,13 @@ the host whether any lane is still active is one device-to-host sync per
 iteration, counted in :data:`SYNCS`. The multi-attempt loop is the same
 batching rule one level up; it runs each attempt on the lanes still
 failing only, which changes no lane's result.
+
+A packed multi-tenant batch (``parallel.batch.packed_sweep_steady_state``)
+runs K mechanisms' lanes as one batch, tenant-major: its ``groups_dyn``
+is stacked ``[K, n_g, n]``, and every operation that reads the groups
+(the projection, the conservation rows, the verdict) takes each tenant's
+lanes with its own groups, in the same operations at the same shapes as
+that tenant's solo batch, so each lane's arithmetic is its solo run's.
 """
 
 from __future__ import annotations
@@ -24,12 +33,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import precision
 from ..ops import linalg, prng
 
 #: Device-to-host syncs spent by the batched loops since the last
 #: :func:`reset_syncs`: one per PTC or LM iteration plus each loop's
-#: exit check, and one per attempt of the multi-attempt loop.
-SYNCS = {"ptc_active": 0, "lm_active": 0, "attempt_active": 0}
+#: exit check, one per attempt of the multi-attempt loop, and one per
+#: diagnostics bundle a sweep pulls (``parallel.batch``).
+SYNCS = {"ptc_active": 0, "lm_active": 0, "attempt_active": 0,
+         "sweep_bundle": 0}
 
 
 def reset_syncs() -> None:
@@ -74,9 +86,32 @@ def _full(ref, value):
     return torch.full_like(ref, value)
 
 
+def _per_tenant(fn, groups_dyn, *lanes):
+    """``fn(*lanes, groups_dyn)``; for stacked groups ``[K, n_g, n]`` (a
+    packed batch, lanes tenant-major) ``fn`` on each tenant's lanes with
+    its groups, the results concatenated along the lanes. Each tenant's
+    operands are fresh copies in the solo batch's layout (the caller
+    stacks the groups in their own layout: ``parallel.batch.
+    _stack_tenants``), so each tenant's group sums (``x @
+    groups_dyn.T``) take the same cuBLAS kernel, hence the same float32
+    rounding, as its solo batch's."""
+    if groups_dyn.dim() == 2:
+        return fn(*lanes, groups_dyn)
+    K = groups_dyn.shape[0]
+    chunks = [a.chunk(K) for a in lanes]
+    outs = [fn(*(c[k].clone() for c in chunks), groups_dyn[k].clone())
+            for k in range(K)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
 def _normalize(x, groups_dyn, floor):
     """Renormalize each conservation group of ``x [L, n]`` to sum 1,
     flooring at ``floor``; entries outside every group are untouched."""
+    if groups_dyn.dim() == 3:
+        return _per_tenant(lambda xk, g: _normalize(xk, g, floor),
+                           groups_dyn, x)
     x = torch.where(x < floor, _full(x, floor), x)
     sums = x @ groups_dyn.T                                  # [L, n_g]
     scale = torch.where(sums > 0, 1.0 / sums, torch.ones_like(sums)) \
@@ -104,8 +139,14 @@ def conservation_constraints(groups_dyn):
     conservation constraints: the first member row of each nonempty
     group is replaced by the group row and its residual entry zeroed, so
     Newton walks along the conservation manifold through a nonsingular
-    matrix. Apply as ``where(M[:, None] > 0, R, A)`` and ``F * (1 - M)``.
-    (Static per spec, so computed on the host.)"""
+    matrix. Apply as ``where(M[:, None] > 0, R, A)`` and ``F * (1 - M)``
+    (:func:`_constrained`, :func:`_keep`). (Static per spec, so computed
+    on the host.) Stacked groups ``[K, n_g, n]`` give ``R [K, n, n]``
+    and ``M [K, n]``."""
+    if groups_dyn.dim() == 3:
+        pairs = [conservation_constraints(g) for g in groups_dyn]
+        return (torch.stack([p[0] for p in pairs]),
+                torch.stack([p[1] for p in pairs]))
     G = groups_dyn.detach().cpu().numpy()
     n = G.shape[1]
     have = np.sum(G > 0, axis=1) > 0
@@ -117,6 +158,26 @@ def conservation_constraints(groups_dyn):
     t = lambda a: torch.as_tensor(a, dtype=groups_dyn.dtype,
                                   device=groups_dyn.device)
     return t(R), t(M)
+
+
+def _constrained(A, R, M):
+    """``where(M[:, None] > 0, R, A)`` on every lane of ``A [L, n, n]``;
+    per-tenant ``R [K, n, n]``, ``M [K, n]`` act on each tenant's block
+    of the tenant-major lanes."""
+    if R.dim() == 2:
+        return torch.where(M[:, None] > 0, R, A)
+    K = R.shape[0]
+    return torch.where(M[:, None, :, None] > 0, R[:, None],
+                       A.view(K, -1, *A.shape[1:])).view(A.shape)
+
+
+def _keep(F, M):
+    """``F * (1 - M)`` on every lane of ``F [L, n]`` (per tenant for
+    ``M [K, n]``)."""
+    if M.dim() == 1:
+        return F * (1.0 - M)
+    K = M.shape[0]
+    return (F.view(K, -1, F.shape[-1]) * (1.0 - M)[:, None]).view(F.shape)
 
 
 def _direction_factor(A):
@@ -150,8 +211,6 @@ def _ptc_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
     L, n = x0.shape
     eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
     R, M = conservation_constraints(groups_dyn)
-    con_rows = M[:, None] > 0
-    keep_rows = 1.0 - M
     zero = torch.zeros((), dtype=x0.dtype, device=x0.device)
 
     F, gross = fscale_fn(x0)
@@ -166,9 +225,9 @@ def _ptc_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
         if not bool(active.any()):
             break
         J = jac_fn(x)
-        A = torch.where(con_rows, R, eye / dt[:, None, None] - J)
+        A = _constrained(eye / dt[:, None, None] - J, R, M)
         solve_fn = _direction_factor(A.contiguous())
-        dx = solve_fn((F * keep_rows).contiguous())
+        dx = solve_fn(_keep(F, M).contiguous())
         # Projected PTC: clamp nonnegative and renormalize the
         # conservation groups.
         x_new = _normalize(torch.maximum(x + dx, zero), groups_dyn,
@@ -177,7 +236,7 @@ def _ptc_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
         fnorm_new = _rnorm(F_new, gross_new, opts)
         nch_step = torch.zeros_like(nch)
         for _ in range(opts.chord_steps):
-            dxc = solve_fn((F_new * keep_rows).contiguous())
+            dxc = solve_fn(_keep(F_new, M).contiguous())
             x_c = _normalize(torch.maximum(x_new + dxc, zero), groups_dyn,
                              opts.floor)
             F_c, gross_c = fscale_fn(x_c)
@@ -220,6 +279,9 @@ def _verdict_tests(x, fnorm, groups_dyn, opts: SolverOptions):
     """The three convergence tests per lane: normalized residual <= 1,
     no coverage below ``-neg_tol``, every nonempty group sums to 1
     within ``coverage_tol``."""
+    if groups_dyn.dim() == 3:
+        return _per_tenant(lambda xk, fk, g: _verdict_tests(xk, fk, g, opts),
+                           groups_dyn, x, fnorm)
     rate_ok = fnorm <= 1.0
     pos_ok = torch.all(x >= -opts.neg_tol, dim=-1)
     sums = x @ groups_dyn.T
@@ -258,8 +320,6 @@ def _lm_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
     L, n = x0.shape
     eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
     R, M = conservation_constraints(groups_dyn)
-    con_rows = M[:, None] > 0
-    keep_rows = 1.0 - M
     zero = torch.zeros((), dtype=x0.dtype, device=x0.device)
 
     F, gross = fscale_fn(x0)
@@ -278,10 +338,9 @@ def _lm_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
         JtJ = Jt @ J
         dmax = torch.clamp(torch.amax(torch.diagonal(JtJ, dim1=-2, dim2=-1),
                                       dim=-1), min=1e-300)
-        A = torch.where(con_rows, R,
-                        JtJ + (lam * dmax)[:, None, None] * eye)
+        A = _constrained(JtJ + (lam * dmax)[:, None, None] * eye, R, M)
         g = torch.where(M > 0, zero, (Jt @ (F / scale)[:, :, None])[..., 0])
-        dx = _direction_solve(A.contiguous(), (-g * keep_rows).contiguous())
+        dx = _direction_solve(A.contiguous(), _keep(-g, M).contiguous())
         x_new = _normalize(torch.maximum(x + dx, zero), groups_dyn,
                            opts.floor)
         F_new, gross_new = fscale_fn(x_new)
@@ -304,9 +363,58 @@ def _lm_attempt(fscale_fn, jac_fn, x0, groups_dyn, opts: SolverOptions):
                                          device=x0.device)
 
 
+def bulk_options(opts: SolverOptions, tier: str) -> SolverOptions:
+    """The tolerances the bulk march of ``tier`` can reach: an f32
+    residual carries ~eps32 * gross of rounding noise, above the float64
+    test's ``rate_tol_rel * gross``, so the bulk runs against tolerances
+    floored at its noise level (``rate_tol`` at least 1e-5,
+    ``rate_tol_rel`` at least 32 eps of the bulk dtype) and the float64
+    polish does the rest. Only the bulk march uses them; the verdict
+    takes the caller's ``opts``."""
+    eps_b = float(torch.finfo(precision.bulk_dtype(tier)).eps)
+    return opts._replace(
+        rate_tol=max(float(opts.rate_tol), 1.0e-5),
+        rate_tol_rel=max(float(opts.rate_tol_rel), 32.0 * eps_b))
+
+
+#: Float64 Newton polish steps after a reduced-precision bulk march:
+#: each squares the bulk's ~1e-7-relative error, so two land far below
+#: every float64 tolerance; a step is kept only where it does not raise
+#: the residual.
+POLISH_STEPS = 2
+
+
+def _polish_newton(fscale_fn, jac_fn, x, groups_dyn, opts: SolverOptions,
+                   steps: int):
+    """``steps`` conservation-constrained Newton steps from ``x [L, n]``
+    at the closures' precision (float64), each kept on a lane only where
+    its state and residual are finite and its normalized residual (at the
+    caller's ``opts``) does not grow; the same projection as the PTC
+    step. Returns ``(x, normalized_residual)``."""
+    R, M = conservation_constraints(groups_dyn)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    F, gross = fscale_fn(x)
+    fnorm = _rnorm(F, gross, opts)
+    for _ in range(steps):
+        B = _constrained(jac_fn(x), R, M)
+        dx = _direction_solve(B.contiguous(), _keep(F, M).contiguous())
+        x_new = _normalize(torch.maximum(x - dx, zero), groups_dyn,
+                           opts.floor)
+        F_new, gross_new = fscale_fn(x_new)
+        fnorm_new = _rnorm(F_new, gross_new, opts)
+        keep = (torch.isfinite(fnorm_new)
+                & torch.all(torch.isfinite(x_new), dim=-1)
+                & (fnorm_new <= fnorm))
+        x = torch.where(keep[:, None], x_new, x)
+        F = torch.where(keep[:, None], F_new, F)
+        fnorm = torch.where(keep, fnorm_new, fnorm)
+    return x, fnorm
+
+
 def solve_steady(fscale_fn: Callable, jac_fn: Callable, x0, groups_dyn,
                  opts: SolverOptions, key=None, strategy: str = "ptc",
-                 lanes: Callable | None = None):
+                 lanes: Callable | None = None, tier: str = "f64",
+                 bulk_fns: tuple | None = None):
     """Steady solve of ``F(x) = 0`` for every lane.
 
     ``fscale_fn(x) -> (F, gross)`` and ``jac_fn(x) -> J`` act on the lane
@@ -334,13 +442,37 @@ def solve_steady(fscale_fn: Callable, jac_fn: Callable, x0, groups_dyn,
 
     Returns ``(x, success, normalized_residual, iterations, attempts,
     rate_ok, pos_ok, sums_ok, dt_exit, chords)``; ``dt_exit`` is the last
-    attempt's exit pseudo-step (PTC) or damping (LM)."""
+    attempt's exit pseudo-step (PTC) or damping (LM).
+
+    ``tier`` / ``bulk_fns``: under ``"f32-polish"``, with ``bulk_fns =
+    (bulk_fscale_fn, bulk_jac_fn)`` the same closures over the same
+    finished rate constants at the bulk dtype, a single-attempt solve
+    marches in float32 against :func:`bulk_options`, then takes
+    :data:`POLISH_STEPS` float64 Newton steps (:func:`_polish_newton`) and
+    the verdict at ``opts``, with the same best-of-{x0, x1} scoreboard;
+    iterations count the polish steps, ``dt_exit`` comes back in float64.
+    A multi-attempt solve ignores the tier (the rescue ladder is float64).
+    Stacked ``groups_dyn [K, n_g, n]`` (a packed batch, see the module
+    doc) serve the single-attempt solve."""
+    precision.check_tier(tier)
     attempt_fn = _lm_attempt if strategy == "lm" else _ptc_attempt
     F0, gross0 = fscale_fn(x0)
     f0 = _rnorm(F0, gross0, opts)
     if opts.max_attempts == 1:
-        x1, f1, k, dt_exit, chords = attempt_fn(fscale_fn, jac_fn, x0,
-                                                groups_dyn, opts)
+        tiered = tier != "f64" and bulk_fns is not None
+        if tiered:
+            xb, _, k, dt_exit, chords = attempt_fn(
+                *bulk_fns, precision.cast_bulk(x0, tier),
+                precision.cast_bulk(groups_dyn, tier),
+                bulk_options(opts, tier))
+            x1, f1 = _polish_newton(fscale_fn, jac_fn,
+                                    precision.cast_verify(xb), groups_dyn,
+                                    opts, POLISH_STEPS)
+            k = k + POLISH_STEPS
+            dt_exit = precision.cast_verify(dt_exit)
+        else:
+            x1, f1, k, dt_exit, chords = attempt_fn(fscale_fn, jac_fn, x0,
+                                                    groups_dyn, opts)
         ok = _verdict(x1, f1, groups_dyn, opts)
         better = _score(x1, f1, groups_dyn, opts) > _score(x0, f0,
                                                           groups_dyn, opts)
@@ -352,9 +484,10 @@ def solve_steady(fscale_fn: Callable, jac_fn: Callable, x0, groups_dyn,
         return (x_out, ok, f_out, k, torch.ones_like(k), rate_ok, pos_ok,
                 sums_ok, dt_exit, chords)
 
-    if lanes is None:
-        raise ValueError("a multi-attempt solve needs lanes(idx) -> "
-                         "(fscale_fn, jac_fn) over a subset of the lanes")
+    if lanes is None or groups_dyn.dim() != 2:
+        raise ValueError("a multi-attempt solve needs one mechanism's "
+                         "groups and lanes(idx) -> (fscale_fn, jac_fn) over "
+                         "a subset of the lanes")
     L, n = x0.shape
     dev = x0.device
     key = prng.prng_key(0, dev).expand(L, 2) if key is None else \

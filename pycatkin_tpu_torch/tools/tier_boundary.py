@@ -1,18 +1,20 @@
 """The boundary between the resident and panel tiers of ``lu_factor``,
-measured on one CUDA card.
+measured on one CUDA card, in float64 and in float32.
 
     python3 -m pycatkin_tpu_torch.tools.tier_boundary
 
 Off the warp tier, ``lu_factor`` takes the resident tier (the lane's
-matrix in shared memory) while two lanes fit an SM, and the panel tier
-(the matrix in device memory) above. The shipped kernels offer no choice
-of tier, so this script builds two scratch copies of ``csrc/linalg.cu``
-into ``build/``: one that keeps every lane that fits shared memory on the
-resident tier, one that sends every n to the panel tier. At n = 64, 112,
-128 (4,096 lanes) and 165 (2,048 lanes) it checks that both give the
-shipped library's LU and perm bit for bit, then times all three
-(CUDA events). Prints the card's name and power limit and one line a
-shape; exits 1 without a CUDA card.
+matrix in shared memory) while two lanes fit an SM, counted in the
+lane's own type's bytes, and the panel tier (the matrix in device
+memory) above. The shipped kernels offer no choice of tier, so this
+script builds scratch copies of ``csrc/linalg.cu`` into ``build/``: one
+that keeps every lane that fits shared memory on the resident tier, one
+that sends every n to the panel tier, and one that sizes every lane by
+float64 bytes (a float32 lane then takes the tier a float64 lane of its
+n takes). At each shape it checks that every copy gives the
+shipped library's LU and perm bit for bit, then times them all (CUDA
+events). Prints the card's name and power limit and one line a shape and
+type; exits 1 without a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,15 +28,19 @@ import torch
 
 from pycatkin_tpu_torch.ops import cuda_linalg as cl
 
-SHAPES = ((64, 4096), (112, 4096), (128, 4096), (165, 2048))
+SHAPES = {torch.float64: ((64, 4096), (112, 4096), (128, 4096), (165, 2048)),
+          torch.float32: ((64, 4096), (112, 4096), (128, 4096), (165, 2048),
+                          (200, 2048), (256, 2048))}
 REPS = 20
 
-# One text change of the source per variant; each must match once.
+# Text changes of the source per variant; each must match once.
 VARIANTS = {
-    "resident": ("  return lanes == 2 ? 256 : 0;",
-                 "  return lanes >= 1 ? 256 : 0;"),
-    "panel": ("  const int threads = factor_threads(n, limit);",
-              "  const int threads = 0;"),
+    "resident": (("  return lanes == 2 ? 256 : 0;",
+                  "  return lanes >= 1 ? 256 : 0;"),),
+    "panel": (("  const int threads = factor_threads<T>(n, limit);",
+               "  const int threads = 0;"),),
+    "f64_bytes": (("resident_smem<T>(n, 0), limit);",
+                   "resident_smem<double>(n, 0), limit);"),),
 }
 
 
@@ -44,12 +50,15 @@ def build_variants() -> dict:
     src = cl.SOURCE.read_text()
     cl.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (old, new) in VARIANTS.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the text it replaces is not in "
-                               f"{cl.SOURCE} exactly once")
+    for name, changes in VARIANTS.items():
+        text = src
+        for old, new in changes:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the text it replaces is not in "
+                                   f"{cl.SOURCE} exactly once: {old!r}")
+            text = text.replace(old, new)
         cu = cl.BUILD_DIR / f"tier_{name}.cu"
-        cu.write_text(src.replace(old, new))
+        cu.write_text(text)
         so = cl.BUILD_DIR / f"tier_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [cl._nvcc(), *cl.NVCC_FLAGS, "-o", str(so), str(cu)],
@@ -62,8 +71,9 @@ def build_variants() -> dict:
         libs[name] = ctypes.CDLL(str(so))
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for lib in libs.values():
-        lib.pk_lu_factor.argtypes = [vp, vp, vp, ll, ci, vp]
-        lib.pk_lu_factor.restype = ci
+        for fn in (lib.pk_lu_factor, lib.pk_lu_factor_f32):
+            fn.argtypes = [vp, vp, vp, ll, ci, vp]
+            fn.restype = ci
     return libs
 
 
@@ -71,10 +81,11 @@ def factor(lib, A):
     L, n = A.shape[0], A.shape[-1]
     LU = torch.empty_like(A)
     perm = torch.empty((L, n), dtype=torch.int32, device=A.device)
-    err = lib.pk_lu_factor(A.data_ptr(), LU.data_ptr(), perm.data_ptr(), L,
-                           n, cl._stream(A))
+    fn = lib.pk_lu_factor if A.dtype == torch.float64 else lib.pk_lu_factor_f32
+    err = fn(A.data_ptr(), LU.data_ptr(), perm.data_ptr(), L, n,
+             cl._stream(A))
     if err != 0:
-        raise RuntimeError(f"pk_lu_factor n={n}: cudaError {err}")
+        raise RuntimeError(f"lu_factor n={n} {A.dtype}: cudaError {err}")
     return LU, perm
 
 
@@ -99,20 +110,22 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     libs = build_variants()
-    for n, L in SHAPES:
-        rng = np.random.default_rng(n)
-        A = torch.tensor(rng.standard_normal((L, n, n)) + 2.0 * n * np.eye(n),
-                         device="cuda")
-        LU, perm = factor(libs["shipped"], A)
-        for name in VARIANTS:
-            LUv, permv = factor(libs[name], A)
-            if not (torch.equal(LU, LUv) and torch.equal(perm, permv)):
-                raise RuntimeError(f"n={n}: the {name} tier's LU or perm "
-                                   f"differs from the shipped library's")
-        times = {name: ms(lib, A) for name, lib in libs.items()}
-        print(f"lu_factor n={n} x {L} lanes | resident "
-              f"{times['resident']:.4f} ms panel {times['panel']:.4f} ms "
-              f"shipped {times['shipped']:.4f} ms", flush=True)
+    for dtype, shapes in SHAPES.items():
+        for n, L in shapes:
+            rng = np.random.default_rng(n)
+            A = torch.tensor(rng.standard_normal((L, n, n))
+                             + 2.0 * n * np.eye(n), device="cuda").to(dtype)
+            LU, perm = factor(libs["shipped"], A)
+            for name in VARIANTS:
+                LUv, permv = factor(libs[name], A)
+                if not (torch.equal(LU, LUv) and torch.equal(perm, permv)):
+                    raise RuntimeError(f"n={n} {dtype}: the {name} copy's LU "
+                                       f"or perm differs from the shipped "
+                                       f"library's")
+            times = {name: ms(lib, A) for name, lib in libs.items()}
+            print(f"lu_factor {str(dtype)[6:]} n={n} x {L} lanes | "
+                  + " ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
+                  flush=True)
     return 0
 
 

@@ -23,14 +23,15 @@ def device():
     return torch.device("cuda")
 
 
-def _systems(lanes, n, k, device, seed=0):
+def _systems(lanes, n, k, device, seed=0, dtype=torch.float64):
     rng = np.random.default_rng(seed + n)
     A = rng.standard_normal((lanes, n, n)) + 2.0 * n * np.eye(n)
     for i in range(0, lanes, 3):
         A[i] = A[i][rng.permutation(n)]
     A[-1, :, n // 2] = 0.0                      # singular last lane
     b = rng.standard_normal((lanes, n) if k is None else (lanes, n, k))
-    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device).to(
+        dtype)
     return t(A), t(b)
 
 
@@ -50,13 +51,16 @@ def test_kernels_match_plain_versions_on_the_card(device, n, k):
 
 
 def _hold_to_contract(A, b, LU, perm, x, xf, good):
+    """perm and LU the plain version's bit for bit, x within 1e-12
+    relative (in float32 1e-12 eps32 / eps64, ~5.4e-4)."""
     LUr, permr = cl.lu_factor_ref(A)
     xr = cl.lu_solve_ref(LUr, permr, b)
     assert torch.equal(perm[good], permr[good])
     assert torch.equal(LU[good], LUr[good])
     scale = float(xr[good].abs().max())
-    assert float((x[good] - xr[good]).abs().max()) <= 1e-12 * scale
-    assert float((xf[good] - xr[good]).abs().max()) <= 1e-12 * scale
+    tol = 1e-12 * torch.finfo(A.dtype).eps / torch.finfo(torch.float64).eps
+    assert float((x[good] - xr[good]).abs().max()) <= tol * scale
+    assert float((xf[good] - xr[good]).abs().max()) <= tol * scale
     # Both solves take each entry's updates in the same order.
     assert torch.equal(x[good], xf[good])
 
@@ -80,10 +84,38 @@ def test_kernels_serve_large_n_on_the_card(device, n):
     assert not bool(torch.isfinite(xf[-1]).all())
 
 
+@pytest.mark.parametrize("n", [1, 16, 21, 32, 64, 112, 128, 165, 170, 256,
+                               512])
+@pytest.mark.parametrize("k", [None, 4], ids=["vec", "mat4"])
+def test_float32_kernels_match_plain_versions_on_the_card(device, n, k):
+    """The float32 builds of the three kernels (``pk_*_f32``) at every
+    tier: perm and LU the plain float32 version's bit for bit, x within
+    1e-12 eps32 / eps64, lu_solve after lu_factor equal to factor_solve;
+    only the float32 counters move."""
+    lanes = 65 if n <= 128 else 5
+    A, b = _systems(lanes, n, k, device, dtype=torch.float32)
+    cl.reset_launches()
+    LU, perm = cl.lu_factor(A)
+    x = cl.lu_solve(LU, perm, b)
+    xf = cl.factor_solve(A, b)
+    torch.cuda.synchronize()
+    assert LU.dtype == x.dtype == xf.dtype == torch.float32
+    assert cl.LAUNCHES_F32 == {"lu_factor": 1, "lu_solve": 1,
+                               "factor_solve": 1}
+    assert set(cl.LAUNCHES.values()) == {0}
+    _hold_to_contract(A, b, LU, perm, x, xf, slice(0, lanes - 1))
+    assert not bool(torch.isfinite(x[-1]).all())
+    assert not bool(torch.isfinite(xf[-1]).all())
+
+
 def test_kernels_refuse_what_they_do_not_serve(device):
+    """Float64 and float32 only, a right-hand side of the matrix's
+    type."""
     A, b = _systems(2, 8, None, device)
-    with pytest.raises(TypeError, match="float64"):
-        cl.factor_solve(A[:, :4, :4].float().contiguous(), b[:, :4].float())
+    with pytest.raises(TypeError, match="float64 or float32"):
+        cl.factor_solve(A[:, :4, :4].half().contiguous(), b[:, :4].half())
+    with pytest.raises(TypeError, match="right-hand side of type"):
+        cl.factor_solve(A.float(), b)
 
 
 def test_sweep_on_the_card_matches_the_cpu(device):
@@ -129,6 +161,69 @@ def test_abi_sweep_on_the_card_matches_the_cpu(device, shape):
     for k in ("success", "stable", "quarantined", "iterations"):
         assert torch.equal(gpu[k].cpu(), cpu[k]), k
     assert torch.allclose(gpu["y"].cpu(), cpu["y"], rtol=1e-5, atol=1e-12)
+
+
+def test_tier_sweep_on_the_card_matches_the_cpu(device):
+    """The f32-polish tier through ``abi=True`` on the flagship (D = 32):
+    the float32 march launches the float32 lu_factor / lu_solve, the
+    float64 polish the float64 ones; verdicts, the strategy and tier
+    columns equal to the same tier on the CPU, states within rtol 1e-5 /
+    atol 1e-12, and the verdicts the float64 sweep's."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+
+    spec, base = synthetic_spec(24, 32, seed=0)
+    conds = batch.broadcast_conditions(base, 16)._replace(
+        T=np.linspace(400.0, 800.0, 16))
+    mask = engine.tof_mask_for(spec, [spec.rnames[-1]])
+    kw = dict(check_stability=True, abi=True)
+    cl.reset_launches()
+    gpu = batch.sweep_steady_state(spec, conds, mask, device=device,
+                                   tier="f32-polish", **kw)
+    assert cl.LAUNCHES_F32["lu_factor"] > 0 and cl.LAUNCHES_F32["lu_solve"] > 0
+    assert cl.LAUNCHES["lu_factor"] > 0
+    cpu = batch.sweep_steady_state(spec, conds, mask, device="cpu",
+                                   tier="f32-polish", **kw)
+    ref = batch.sweep_steady_state(spec, conds, mask, device=device, **kw)
+    for k in ("success", "stable", "quarantined"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+        assert torch.equal(gpu[k], ref[k]), k
+    assert torch.equal(gpu["lane_telemetry"][:, 3:].cpu(),
+                       cpu["lane_telemetry"][:, 3:])
+    assert torch.allclose(gpu["y"].cpu(), cpu["y"], rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("tier", ["f64", "f32-polish"])
+def test_packed_sweep_on_the_card_matches_solo_sweeps(device, tier):
+    """Three tenants of one bucket (synthetic (12, 14) seeds 0-2, D = 16)
+    packed on the card: each tenant's result equal to its solo sweep on
+    the card, key by key (bits), with one bundle pulled."""
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import newton
+
+    ts = []
+    for seed in range(3):
+        spec, base = synthetic_spec(12, 14, seed=seed)
+        conds = batch.broadcast_conditions(base, 16)._replace(
+            T=np.linspace(430.0, 720.0, 16))
+        ts.append((spec, conds, engine.tof_mask_for(spec,
+                                                    [spec.rnames[-1]])))
+    kw = dict(check_stability=True, device=device, tier=tier)
+    solo = [batch.sweep_steady_state(s, c, m, abi=True, **kw)
+            for s, c, m in ts]
+    newton.reset_syncs()
+    packed = batch.packed_sweep_steady_state(*(list(v) for v in zip(*ts)),
+                                             **kw)
+    assert newton.SYNCS["sweep_bundle"] == 1
+    bits = lambda t: t.contiguous().view(torch.int64) \
+        if t.dtype == torch.float64 else t
+    for so, pa in zip(solo, packed):
+        assert sorted(so) == sorted(pa)
+        for key in so:
+            assert torch.equal(bits(so[key]), bits(pa[key])), key
 
 
 def test_large_mechanism_sweep_on_the_card_matches_the_cpu(device):

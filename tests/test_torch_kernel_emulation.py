@@ -16,7 +16,9 @@ tiled lu_solve and the panel tier (at small n, under a lowered opt-in
 limit or SM count) -- and the results are held against the plain
 PyTorch versions with the same contract as on the card (perm equal, LU
 bit for bit, x within 1e-12 relative, lu_solve after lu_factor equal to
-factor_solve, a singular lane non-finite and its neighbours untouched).
+factor_solve, a singular lane non-finite and its neighbours untouched),
+for both instantiations of the source: every case runs in float64 and
+in float32 (id ``-float32``, x within 1e-12 times eps32 / eps64).
 Skips when no host C++ compiler is installed."""
 
 import ctypes
@@ -50,6 +52,7 @@ EMULATION_HEADER = r"""
 #define __shared__ static
 #define __restrict__
 #define __launch_bounds__(...)
+using std::fabs;
 using std::max;
 using std::min;
 typedef int cudaError_t;
@@ -64,6 +67,10 @@ enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin,
 struct dim3v { unsigned x = 0, y = 0, z = 0; };
 struct double2 { double x, y; };
 inline double2 make_double2(double x, double y) { return {x, y}; }
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 // Every CUDA thread of a block is a fiber; the fibers of one block take
 // turns on one host thread, each running until it waits at a barrier.
 // On x86-64 a switch saves the callee-saved registers and swaps stacks
@@ -134,6 +141,7 @@ struct Barrier {
 struct Warp {
   Barrier full{32}, half0{16}, half1{16};
   double slot_d[32];
+  float slot_f[32];
   int slot_i[32];
   unsigned slot_u[32];
 };
@@ -157,6 +165,8 @@ inline Barrier& group_barrier(unsigned mask) {
 }
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
   group_barrier(mask).arrive_and_wait();
@@ -180,6 +190,7 @@ template <class T, class F> T exchange(unsigned mask, T* slot, T v, F src) {
 }
 template <class T> T* slots(Warp& w);
 template <> inline double* slots<double>(Warp& w) { return w.slot_d; }
+template <> inline float* slots<float>(Warp& w) { return w.slot_f; }
 template <> inline int* slots<int>(Warp& w) { return w.slot_i; }
 template <class T> T __shfl_down_sync(unsigned mask, T v, int off) {
   return exchange(mask, slots<T>(my_warp()), v,
@@ -218,6 +229,11 @@ inline int __double2loint(double d) {
   long long b;
   std::memcpy(&b, &d, 8);
   return static_cast<int>(b & 0xffffffffLL);
+}
+inline int __float_as_int(float f) {
+  int b;
+  std::memcpy(&b, &f, 4);
+  return b;
 }
 inline unsigned __ballot_sync(unsigned mask, bool pred);
 inline bool __any_sync(unsigned mask, bool pred) {
@@ -342,8 +358,10 @@ def emulated(tmp_path_factory):
                  lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, "
                             f"[&] {{ {m.group(1)}({m.group(6)}); }});"),
                  src, flags=re.S)
-    src = src.replace("extern __shared__ double smem[];",
-                      "double* smem = g_smem;")
+    src = src.replace(
+        "extern __shared__ __align__(16) unsigned char smem_bytes[];",
+        "unsigned char* smem_bytes = reinterpret_cast<unsigned char*>"
+        "(g_smem);")
     (d / "linalg_emu.cpp").write_text(src)
     so = d / "libemu.so"
     proc = subprocess.run(
@@ -353,12 +371,41 @@ def emulated(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(so))
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.pk_lu_factor.argtypes = [vp, vp, vp, ll, ci, vp]
-    lib.pk_lu_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
-    lib.pk_factor_solve.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
-    lib.pk_factor_solve_workspace.argtypes = [ci, ci]
-    lib.pk_factor_solve_workspace.restype = ll
+    for sfx in ("", "_f32"):
+        getattr(lib, "pk_lu_factor" + sfx).argtypes = [vp, vp, vp, ll, ci, vp]
+        getattr(lib, "pk_lu_solve" + sfx).argtypes = [vp, vp, vp, vp, ll, ci,
+                                                      ci, vp]
+        getattr(lib, "pk_factor_solve" + sfx).argtypes = [vp, vp, vp, vp, ll,
+                                                          ci, ci, vp]
+        ws = getattr(lib, "pk_factor_solve_workspace" + sfx)
+        ws.argtypes = [ci, ci]
+        ws.restype = ll
     return lib
+
+
+def _typed(cases, ids):
+    """Each case once per element type of the kernels: the float64 case
+    keeps its id, the float32 one (the source's float instantiation)
+    adds ``-float32``."""
+    out = []
+    for case, i in zip(cases, ids):
+        case = case if isinstance(case, tuple) else (case,)
+        out.append(pytest.param(*case, torch.float64, id=i))
+        out.append(pytest.param(*case, torch.float32, id=f"{i}-float32"))
+    return out
+
+
+def _entry(lib, name, dtype):
+    """The C entry point ``name`` for the element type ``dtype``."""
+    return getattr(lib, name + ("_f32" if dtype == torch.float32 else ""))
+
+
+def _low_bits(n, dtype):
+    """2n times (1 + the smallest relative step that still changes the
+    type's value in its low bits: 2^-40 of a double, 2^-20 of a
+    float)."""
+    return 2.0 * n * (1.0 + (2.0 ** -40 if dtype == torch.float64
+                             else 2.0 ** -20))
 
 
 GUARD = 3   # lanes past the end of every output, which no kernel may touch
@@ -374,15 +421,16 @@ def _run_kernels(lib, At, bt):
                        dtype=t.dtype) for t in (At, bt, bt)]
     perm = torch.full((L + GUARD, n), -7, dtype=torch.int32)
     LU, x, xf = outs
-    per_lane = lib.pk_factor_solve_workspace(n, nrhs)
-    work = torch.empty(L * per_lane, dtype=torch.float64)
-    assert lib.pk_lu_factor(At.data_ptr(), LU.data_ptr(), perm.data_ptr(),
-                            L, n, None) == 0
-    assert lib.pk_lu_solve(LU.data_ptr(), perm.data_ptr(), bt.data_ptr(),
-                           x.data_ptr(), L, n, nrhs, None) == 0
-    assert lib.pk_factor_solve(At.data_ptr(), bt.data_ptr(), xf.data_ptr(),
-                               work.data_ptr() if per_lane else None, L, n,
-                               nrhs, None) == 0
+    per_lane = _entry(lib, "pk_factor_solve_workspace", At.dtype)(n, nrhs)
+    work = torch.empty(L * per_lane, dtype=At.dtype)
+    assert _entry(lib, "pk_lu_factor", At.dtype)(
+        At.data_ptr(), LU.data_ptr(), perm.data_ptr(), L, n, None) == 0
+    assert _entry(lib, "pk_lu_solve", At.dtype)(
+        LU.data_ptr(), perm.data_ptr(), bt.data_ptr(), x.data_ptr(), L, n,
+        nrhs, None) == 0
+    assert _entry(lib, "pk_factor_solve", At.dtype)(
+        At.data_ptr(), bt.data_ptr(), xf.data_ptr(),
+        work.data_ptr() if per_lane else None, L, n, nrhs, None) == 0
     for t in (LU, perm, x, xf):
         assert bool((t[L:] == -7).all()), "a kernel wrote past its lanes"
     return LU[:L], perm[:L], x[:L], xf[:L]
@@ -390,7 +438,8 @@ def _run_kernels(lib, At, bt):
 
 def _hold_to_contract(At, bt, out, good, bad=()):
     """perm equal, LU bit for bit, x within 1e-12 relative on the lanes
-    ``good``; factor_solve's x is lu_solve's bit for bit; the lanes
+    ``good`` (in float32 1e-12 times the ratio of the two epsilons,
+    ~5.4e-4); factor_solve's x is lu_solve's bit for bit; the lanes
     ``bad`` come out non-finite."""
     LU, perm, x, xf = out
     LUr, permr = cl.lu_factor_ref(At)
@@ -398,17 +447,21 @@ def _hold_to_contract(At, bt, out, good, bad=()):
     assert torch.equal(perm[good], permr[good])
     assert torch.equal(LU[good], LUr[good])
     scale = float(xr[good].abs().max())
-    assert float((x[good] - xr[good]).abs().max()) <= 1e-12 * scale
+    tol = 1e-12 * torch.finfo(At.dtype).eps / torch.finfo(torch.float64).eps
+    assert float((x[good] - xr[good]).abs().max()) <= tol * scale
     assert torch.equal(xf[good], x[good])
     for i in bad:
         assert not bool(torch.isfinite(x[i]).all())
         assert not bool(torch.isfinite(xf[i]).all())
 
 
-@pytest.mark.parametrize("n,k", [(1, None), (5, None), (5, 3), (21, None),
-                                 (21, 3), (33, None), (9, 4), (33, 4),
-                                 (70, 4), (100, 2), (119, 2)])
-def test_kernel_source_matches_plain_versions(emulated, n, k):
+SOURCE_CASES = [(1, None), (5, None), (5, 3), (21, None), (21, 3),
+                (33, None), (9, 4), (33, 4), (70, 4), (100, 2), (119, 2)]
+
+
+@pytest.mark.parametrize("n,k,dtype", _typed(
+    SOURCE_CASES, [f"{n}-{k}" for n, k in SOURCE_CASES]))
+def test_kernel_source_matches_plain_versions(emulated, n, k, dtype):
     """Off the warp tier: the resident factorization (one panel at n <= 32,
     full and partial last panels above) and the tiled lu_solve (one tile
     row, and two and three of them with partial last tiles). At n = 119
@@ -422,11 +475,12 @@ def test_kernel_source_matches_plain_versions(emulated, n, k):
     A[1] = A[1][rng.permutation(n)]
     if n > 1:
         A[2, :, n // 2] = 0.0                   # singular lane
-    At = torch.tensor(A)
+    At = torch.tensor(A, dtype=dtype)
     bt = torch.tensor(rng.standard_normal((L, n) if k is None
-                                          else (L, n, k)))
-    if n == 119:
-        assert emulated.pk_factor_solve_workspace(n, k) == n * n
+                                          else (L, n, k)), dtype=dtype)
+    if n == 119:   # factor_solve takes the panel tier there in float64
+        assert _entry(emulated, "pk_factor_solve_workspace", dtype)(
+            n, k) == (n * n if dtype == torch.float64 else 0)
     out = _run_kernels(emulated, At, bt)
     if n > 1:
         _hold_to_contract(At, bt, out, slice(0, 2), bad=(2,))
@@ -443,14 +497,18 @@ def _tie_matrix(rng, n):
             return M
 
 
-@pytest.mark.parametrize("n,k", [(16, None), (32, None), (16, 2), (32, 3)])
-def test_warp_tier_isolates_lanes_of_a_block(emulated, n, k):
+WARP_CASES = [(16, None), (32, None), (16, 2), (32, 3)]
+
+
+@pytest.mark.parametrize("n,k,dtype", _typed(
+    WARP_CASES, [f"{n}-{k}" for n, k in WARP_CASES]))
+def test_warp_tier_isolates_lanes_of_a_block(emulated, n, k, dtype):
     """The warp tier (n = 16 or 32, 8 or 4 lanes a block): 11 lanes leave a
     partial last block; lane 5, in the middle of the second block of 4
     (or the first of 8), is singular and lane 6 all NaN; lanes 2 and 9
     have tied column maxima, and lane 3 a first column whose two largest
-    entries differ only in their low 32 bits, the larger one further
-    down. Every other lane matches the plain version exactly as the
+    entries differ only in their low bits (the low word of a double), the
+    larger one further down. Every other lane matches the plain version exactly as the
     contract says."""
     rng = np.random.default_rng(100 + n)
     L = 11
@@ -459,38 +517,49 @@ def test_warp_tier_isolates_lanes_of_a_block(emulated, n, k):
         A[i] = A[i][rng.permutation(n)]
     A[2], A[9] = _tie_matrix(rng, n), _tie_matrix(rng, n)
     A[3, :, 0] *= 0.01
-    A[3, 0, 0], A[3, n - 2, 0] = 2.0 * n, 2.0 * n * (1.0 + 2.0 ** -40)
+    A[3, 0, 0], A[3, n - 2, 0] = 2.0 * n, _low_bits(n, dtype)
     A[5, :, n // 2] = 0.0
     A[6] = np.nan
-    At = torch.tensor(A)
+    At = torch.tensor(A, dtype=dtype)
     bt = torch.tensor(rng.standard_normal((L, n) if k is None
-                                          else (L, n, k)))
+                                          else (L, n, k)), dtype=dtype)
     out = _run_kernels(emulated, At, bt)
     good = [i for i in range(L) if i not in (5, 6)]
     _hold_to_contract(At, bt, out, good, bad=(5, 6))
     assert not bool(torch.isfinite(out[0][5]).all())
+    # The low-bits tie: the larger entry, further down, is the pivot.
+    assert int(out[1][3, 0]) == n - 2
 
 
-@pytest.mark.parametrize("n", [64, 170, 100, 119, 120],
-                         ids=["shared", "device", "shared-100", "shared-119",
-                              "device-120"])
-def test_block_tier_pivots_on_updated_columns(emulated, n):
+# The largest n at which factor_solve (k = 1) takes the resident tier:
+# two lanes an SM, counted in the type's bytes.
+RESIDENT_MAX = {torch.float64: 119, torch.float32: 168}
+
+
+@pytest.mark.parametrize("n,dtype", _typed(
+    [64, 170, 100, 119, 120],
+    ["shared", "device", "shared-100", "shared-119", "device-120"]))
+def test_block_tier_pivots_on_updated_columns(emulated, n, dtype):
     """The block tiers on Gaussian matrices without a dominant diagonal,
     so every pivot search reads columns the previous step updated: at
     n = 64, 100 and 119 in shared memory (the resident tier, with six and
     two lanes an H100 SM), and at n = 120 and 170, where the panel tier
-    takes it: lu_factor works in LU and factor_solve in its workspace.
-    The resident tier serves n while two lanes fit an SM (n <= 119 at
-    k = 1). Lane 1 is singular."""
+    takes it in float64 (in float32 only at 170): lu_factor works in LU
+    and factor_solve in its workspace. The resident tier serves n while
+    two lanes fit an SM (at k = 1 n <= 119 in float64, n <= 168 in
+    float32: :data:`RESIDENT_MAX`). Lane 1 is singular."""
     L = 2
-    lib = emulated
-    assert lib.pk_factor_solve_workspace(119, 1) == 0
-    assert lib.pk_factor_solve_workspace(120, 1) == 120 * 120
-    assert lib.pk_factor_solve_workspace(n, 1) == (n * n if n > 119 else 0)
+    workspace = _entry(emulated, "pk_factor_solve_workspace", dtype)
+    last = RESIDENT_MAX[dtype]
+    assert workspace(last, 1) == 0
+    assert workspace(last + 1, 1) == (last + 1) ** 2
+    assert workspace(n, 1) == (n * n if n > last else 0)
     rng = np.random.default_rng(n)
     A = rng.standard_normal((L, n, n))
     A[1, :, n // 2] = 0.0
-    At, bt = torch.tensor(A), torch.tensor(rng.standard_normal((L, n)))
+    At = torch.tensor(A, dtype=dtype)
+    bt = torch.tensor(rng.standard_normal((L, n)), dtype=dtype)
+    lib = emulated
     _hold_to_contract(At, bt, _run_kernels(lib, At, bt), [0], bad=(1,))
 
 
@@ -521,16 +590,16 @@ PANEL_CASES = [
 ]
 
 
-@pytest.mark.parametrize("n,k,limit,what", PANEL_CASES,
-                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in PANEL_CASES])
+@pytest.mark.parametrize("n,k,limit,what,dtype", _typed(
+    PANEL_CASES, [f"{c[0]}-{c[1]}-{c[2]}" for c in PANEL_CASES]))
 def test_panel_tier_matches_plain_versions(emulated, optin, n, k, limit,
-                                           what):
+                                           what, dtype):
     """The panel tier (the lane's matrix in device memory, factored a
     panel at a time) at an opt-in limit that sends n there. Eight lanes,
     one block each: 0 diagonally dominant, 1 and 7 the same with shuffled
     rows (pivots leave the panel's top rows), 2 tied column maxima (small
     integers), 3 a first column whose two largest entries differ only in
-    their low 32 bits, the larger further down, 4 Gaussian (every pivot
+    their low bits, the larger further down, 4 Gaussian (every pivot
     search reads updated columns, across panels), 5 singular, 6 all NaN.
     Every other lane matches the plain version exactly as the contract
     says (perm and LU bit for bit), in lu_factor and factor_solve; the
@@ -538,7 +607,8 @@ def test_panel_tier_matches_plain_versions(emulated, optin, n, k, limit,
     optin(limit)
     lib = emulated
     nrhs = 1 if k is None else k
-    assert lib.pk_factor_solve_workspace(n, nrhs) == n * n, what
+    assert _entry(lib, "pk_factor_solve_workspace", dtype)(
+        n, nrhs) == n * n, what
     rng = np.random.default_rng(1000 + n)
     L = 8
     A = rng.standard_normal((L, n, n)) + 2.0 * n * np.eye(n)
@@ -546,53 +616,62 @@ def test_panel_tier_matches_plain_versions(emulated, optin, n, k, limit,
         A[i] = A[i][rng.permutation(n)]
     A[2] = _tie_matrix(rng, n)
     A[3, :, 0] *= 0.01
-    A[3, 0, 0], A[3, n - 2, 0] = 2.0 * n, 2.0 * n * (1.0 + 2.0 ** -40)
+    A[3, 0, 0], A[3, n - 2, 0] = 2.0 * n, _low_bits(n, dtype)
     A[4] = rng.standard_normal((n, n))
     A[5, :, n // 2] = 0.0
     A[6] = np.nan
-    At = torch.tensor(A)
+    At = torch.tensor(A, dtype=dtype)
     bt = torch.tensor(rng.standard_normal((L, n) if k is None
-                                          else (L, n, k)))
+                                          else (L, n, k)), dtype=dtype)
     out = _run_kernels(lib, At, bt)
     good = [i for i in range(L) if i not in (5, 6)]
     _hold_to_contract(At, bt, out, good, bad=(5, 6))
     assert not bool(torch.isfinite(out[0][5]).all())
     assert not bool(torch.isfinite(out[0][6]).all())
-    # The low-word tie: the larger entry, further down, is the pivot.
+    # The low-bits tie: the larger entry, further down, is the pivot.
     assert int(out[1][3, 0]) == n - 2
 
 
-# (n, k, opt-in limit in bytes, SMs, what the tiled lu_solve then runs):
-# the limit leaves room beside y for fewer tiles than the lane has tile
-# rows, or for none; one SM leaves the three lanes no single wave.
+# (n, k, opt-in limit, SMs, what the tiled lu_solve then runs): the limit
+# in elements of the type, (y, tiles of 33 x 32, extra), leaves room
+# beside y for fewer tiles than the lane has tile rows, or for none (None:
+# the H100's); one SM leaves the three lanes no single wave.
+TILE_ELEMS = 33 * 32
 SOLVE_CASES = [
-    (70, None, 8 * 70 + 2 * 8448, 132, "two warps for three tile rows"),
-    (70, 4, 8 * 280 + 8448 - 8, 132, "no tile beside y: rows read from "
+    (70, None, (70, 2, 0), 132, "two warps for three tile rows"),
+    (70, 4, (280, 1, -1), 132, "no tile beside y: rows read from "
      "device memory"),
-    (100, 2, H100_OPTIN, 1, "one warp for four tile rows"),
+    (100, 2, None, 1, "one warp for four tile rows"),
 ]
 
 
-@pytest.mark.parametrize("n,k,limit,sms,what", SOLVE_CASES,
-                         ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[3]}"
-                              for c in SOLVE_CASES])
+def _solve_limit(limit, itemsize):
+    if limit is None:
+        return H100_OPTIN
+    y, tiles, extra = limit
+    return itemsize * (y + tiles * TILE_ELEMS + extra)
+
+
+@pytest.mark.parametrize("n,k,limit,sms,what,dtype", _typed(
+    SOLVE_CASES, [f"{c[0]}-{c[1]}-{_solve_limit(c[2], 8)}-{c[3]}"
+                  for c in SOLVE_CASES]))
 def test_tiled_solve_at_a_lowered_limit(emulated, optin, n, k, limit, sms,
-                                        what):
+                                        what, dtype):
     """The tiled lu_solve where shared memory holds fewer warps' tiles
     than the lane has tile rows (a warp then owns rows 0 and 2), or none
     (each thread reads its row of a tile from device memory), and where
     the lanes outnumber what one wave holds (one warp a lane). Three
     lanes, the last singular."""
-    optin(limit)
+    optin(_solve_limit(limit, torch.finfo(dtype).bits // 8))
     emulated.emu_set_sms(sms)
     try:
         rng = np.random.default_rng(2000 + n)
         A = rng.standard_normal((3, n, n)) + 2.0 * n * np.eye(n)
         A[1] = A[1][rng.permutation(n)]
         A[2, :, n // 2] = 0.0
-        At = torch.tensor(A)
+        At = torch.tensor(A, dtype=dtype)
         bt = torch.tensor(rng.standard_normal((3, n) if k is None
-                                              else (3, n, k)))
+                                              else (3, n, k)), dtype=dtype)
         _hold_to_contract(At, bt, _run_kernels(emulated, At, bt), [0, 1],
                           bad=(2,))
     finally:
@@ -600,9 +679,11 @@ def test_tiled_solve_at_a_lowered_limit(emulated, optin, n, k, limit, sms,
 
 
 def test_kernel_entry_points_reject_bad_sizes(emulated):
-    lib = emulated
-    assert lib.pk_lu_factor(None, None, None, 1, 0, None) != 0
-    assert lib.pk_lu_solve(None, None, None, None, 1, 4, 0, None) != 0
-    assert lib.pk_factor_solve(None, None, None, None, 0, 4, 1, None) != 0
-    # A lane too large for shared memory needs its workspace.
-    assert lib.pk_factor_solve(None, None, None, None, 1, 200, 1, None) != 0
+    for dtype in (torch.float64, torch.float32):
+        fac, sol, fs = (_entry(emulated, name, dtype) for name in (
+            "pk_lu_factor", "pk_lu_solve", "pk_factor_solve"))
+        assert fac(None, None, None, 1, 0, None) != 0
+        assert sol(None, None, None, None, 1, 4, 0, None) != 0
+        assert fs(None, None, None, None, 0, 4, 1, None) != 0
+        # A lane too large for shared memory needs its workspace.
+        assert fs(None, None, None, None, 1, 200, 1, None) != 0

@@ -128,8 +128,10 @@ def test_cpu_tensors_launch_no_kernel():
 def test_wrappers_check_their_arguments():
     A, b = _systems(4)
     At, bt = _t(A), _t(b)
-    with pytest.raises(TypeError, match="float64"):
-        cl.lu_factor(At.float())
+    with pytest.raises(TypeError, match="float64 or float32"):
+        cl.lu_factor(At.half())
+    with pytest.raises(TypeError, match="right-hand side of type"):
+        cl.factor_solve(At.float(), bt)
     with pytest.raises(ValueError, match="lanes, n, n"):
         cl.lu_factor(At[0])
     with pytest.raises(ValueError, match="contiguous"):
