@@ -106,12 +106,15 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    (:data:`TRANSIENT_PATHS`): TR-BDF2 unpadded (stage matrices n = 54,
    ``lu_factor`` resident tier and tiled ``lu_solve``), TR-BDF2 with
    ``abi=True`` (n = 128: panel-tier ``lu_factor``, tiled ``lu_solve``)
-   and ESDIRK4 with ``abi=True``; each twice (first and warm) with walls,
+   and ESDIRK4 with ``abi=True``; each first, and warm with the same
+   launches and host syncs where the first took at most
+   :data:`WARM_RERUN_MAX_S` (ESDIRK4), with walls,
    lanes/s, save points/s, peak memory, host syncs, lane-steps accepted,
    rejected and ended steady, ``ok``, the lanes the Newton finish took
    and rescued, the quarantine count and the launches, then a profile of
    the first steps of its first save interval (per step: wall, device
-   busy time, device kernels; the unpadded path also at 512 lanes). 16
+   busy time, device kernels; the unpadded path also at 512 lanes), run
+   twice with the same launches, host syncs and states, bit for bit. 16
    lanes of each
    re-run on the CPU (:data:`TRANSIENT_SUBSET`; the CPU's time there is
    the slowest lane's step count, not the lane count) in worker
@@ -129,10 +132,10 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    ``factor_solve`` at n = 165 exactly three times (two polish steps and
    the adjoint solve) beside the steady solve's ``lu_factor`` /
    ``lu_solve``; 13c finite differences on 1,024 of the flagship's lanes
-   (66,560 steady solves in one call; no kernel may launch). Each twice
-   (first and warm) with walls, lanes/s, peak memory, host syncs, NaN
-   lanes and launches. On the card, every lane with finite xi holds the
-   sum rule |sum_r xi_r - 1| <= 1e-6 in 13a and 13b (scaling every k
+   (66,560 steady solves in one call; no kernel may launch). Each first
+   and warm (the same launches), with walls, lanes/s, peak memory, host
+   syncs, NaN lanes and launches. On the card, every lane with finite xi
+   holds the sum rule |sum_r xi_r - 1| <= 1e-6 in 13a and 13b (scaling every k
    scales the TOF of the infinite-dilution reactor by the same factor)
    with the term the solve's residual adds to it (see :func:`sum_rule`).
    :data:`SUBSET` lanes of 13a re-run on the CPU, and
@@ -141,7 +144,8 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    within rtol 1e-6 / atol 1e-9 (:data:`DRC_ENVELOPE`), else within
    twice the CPU's own spread with T up, T down and kscale up by one
    ulp. Phase 7's CPU comparisons wait until after phase 11, phase
-   12's last until after phase 9's timings;
+   12's first two until after phase 13, its last until after phase 9's
+   timings;
 14. the f32-polish precision tier: ``sweep_steady_state(...,
    tier="f32-polish")`` on the unpadded flagship (65,536 lanes, n = 21,
    Gauss-Jordan in float32, no kernel), the ABI flagship (65,536 lanes,
@@ -154,7 +158,29 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
 15. the packed multi-tenant sweep: four tenants of one bucket (D = 32) x
    16,384 lanes under both tiers, each tenant's dict equal to its solo
    sweep's bit for bit, the packed launches and host syncs beside the
-   solo sweeps', then a K = 3 pack (see :func:`pack_phase`).
+   solo sweeps', then a K = 3 pack (see :func:`pack_phase`);
+16. serve: the sweep server (``pycatkin_tpu_torch.serve``) on the card.
+   (a) the soak (``serve.soak.run_soak``) over TCP at its default mix:
+   buckets 16, 32 and 128, 4 lanes a request, 6 mechanisms a bucket,
+   ``max_occupancy`` 8, concurrency 16, :data:`SERVE_REQUESTS` measured
+   sweep requests; ``check_soak_record`` must pass (no failure, every
+   response schema-complete, p99 within 30 s), and the first
+   :data:`SERVE_AUDIT` measured answers are each re-run as a solo call on
+   the card (the mechanism read back from its wire form, as the server
+   reads it) with ``canonical_answer`` byte-identical; ``lu_factor`` and
+   ``lu_solve`` must launch, counted by n and lanes. (b) through a server
+   of their own: three transient requests (:data:`SERVE_TRANSIENTS`) on
+   the soak's save grid 0, 1e-9 .. 1 s, the two of one bucket in one
+   packed flush, each byte-identical to its solo
+   ``batch_transient(abi=True)``; then, through another, full
+   width: one 65,536-lane sweep request of the ABI flagship,
+   byte-identical to a direct
+   ``sweep_steady_state(..., abi=True)`` at the coalescer's options
+   (``check_stability=False``, float64), then phase 15's four
+   16,384-lane tenants submitted together, which must come back as one
+   packed flush (``pack.tenants == 4``), each byte-identical to a direct
+   ``packed_sweep_steady_state`` of the four (see :func:`serve_phase`).
+   It runs before the script waits on phase 12's last CPU re-run.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
@@ -162,7 +188,9 @@ line with one row per kernel per path that launches it (``path``:
 ``certificate``, ``abi_flagship``, ``abi_certificate``, ``rescue_abi``,
 ``large``, ``large_abi``, ``transient``, ``transient_abi``,
 ``transient_esdirk4``, ``drc_large``, ``abi_flagship_f32``,
-``large_abi_f32``, ``packed`` or ``packed_f32``; the float32 kernels
+``large_abi_f32``, ``packed``, ``packed_f32``, ``serve``,
+``serve_transient`` or ``serve_full``, the serve paths with one row per
+kernel, n and lane count they launched at; the float32 kernels
 are named ``lu_factor_f32`` etc.), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA card it exits 1 and
@@ -202,6 +230,16 @@ Y_TOL = dict(rtol=5e-2, atol=1e-12)
 PACK_LANES = 16384       # phase 15: lanes of each of the four tenants
 PACK_SEEDS = (0, 1, 2, 3)
 PACK3_LANES = 1024       # phase 15: the K = 3 pack's lanes a tenant
+# Phase 16a: measured soak requests, sweeps only. The soak's tenth of
+# transients does not fit the time limit: at 60 requests it took 461 s
+# on an H100 80GB HBM3 at 700 W, most of it the warm-up's packed
+# transient flushes (PERF.md section 5).
+SERVE_REQUESTS = 100
+SERVE_AUDIT = 32         # phase 16a: answers re-run as solo calls
+# Phase 16b's transient requests: (bucket, seed) of
+# synthetic_system_for_bucket, two of one bucket (one packed flush) and
+# one of another, on the soak's save grid; ~40-60 batch steps each.
+SERVE_TRANSIENTS = ((16, 1), (16, 4), (32, 1))
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
 ABI_CERT_LANES = 65536
@@ -231,6 +269,11 @@ TRANSIENT_SUBSET = 16    # lanes of each transient path re-run on the CPU
 # line still needs ~40 s, and the whole script must end within 1,200 s.
 TRANSIENT_GATE_BY = 1100.0
 STEP_PROFILE_STEPS = 20  # steps of the profiled first save interval
+# Phases 12 and 13: a path whose first run took longer is not re-run warm
+# (the TR-BDF2 transients' ~100-130 s each would not fit the time limit;
+# their warm runs differed from the first by 4-12 %, PERF.md); their step
+# profiles repeat a short run instead.
+WARM_RERUN_MAX_S = 60.0
 DRC_FD_LANES = 1024      # phase 13c: 1,024 x (2 n_r + 1) = 66,560 solves
 DRC_SUBSET = 16          # lanes of 13b and 13c re-run in a worker
 DRC_ENVELOPE = dict(rtol=1e-6, atol=1e-9)
@@ -363,6 +406,18 @@ def test_matrices(lanes: int, n: int, seed: int, device, dtype=None):
     return t(A), t(b)
 
 
+def timing_matrices(L: int, n: int, seed: int, device, dtype=None):
+    """The operands of a timed kernel at ``L`` lanes: :func:`test_matrices`
+    with its singular lane last, or at ``L`` = 1 one well-conditioned
+    lane. Returns ``(A, b, good)``, ``good`` the slice of the
+    well-conditioned lanes."""
+    A, b = test_matrices(max(L - 1, 1), n, seed=seed, device=device,
+                         dtype=dtype)
+    if L == 1:
+        return A[:1].contiguous(), b[:1].contiguous(), slice(0, 1)
+    return A, b, slice(0, L - 1)
+
+
 def rel_err(a, b) -> float:
     import torch
     return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
@@ -436,12 +491,12 @@ def time_lu(cl, n: int, L: int, device, dtype=None) -> list:
     import torch
     f32 = dtype == torch.float32
     sfx, e, tol = ("_f32", 4, F32_KERNEL_TOL) if f32 else ("", 8, KERNEL_TOL)
-    A, b = test_matrices(L - 1, n, seed=n, device=device, dtype=dtype)
+    A, b, g = timing_matrices(L, n, seed=n, device=device, dtype=dtype)
     LU, perm = cl.lu_factor(A)
     LUr, permr = cl.lu_factor_ref(A)
-    lu_err = float(torch.max(torch.abs(LU[:-1] - LUr[:-1])))
-    assert torch.equal(perm[:-1], permr[:-1]), f"lu_factor n={n} x {L}: perm"
-    assert torch.equal(LU[:-1], LUr[:-1]), \
+    lu_err = float(torch.max(torch.abs(LU[g] - LUr[g])))
+    assert torch.equal(perm[g], permr[g]), f"lu_factor n={n} x {L}: perm"
+    assert torch.equal(LU[g], LUr[g]), \
         f"lu_factor n={n} x {L}: LU differs from the plain version's " \
         f"({lu_err})"
     ms = cuda_ms(lambda: cl.lu_factor(A), REPS)
@@ -456,8 +511,8 @@ def time_lu(cl, n: int, L: int, device, dtype=None) -> list:
 
     x = cl.lu_solve(LU, perm, b)
     xr = cl.lu_solve_ref(LUr, permr, b)
-    sol_err = float(torch.max(torch.abs(x[:-1] - xr[:-1])))
-    err = rel_err(x[:-1], xr[:-1])
+    sol_err = float(torch.max(torch.abs(x[g] - xr[g])))
+    err = rel_err(x[g], xr[g])
     assert err <= tol, f"lu_solve n={n} x {L}: rel err {err}"
     tLU, tpiv, _ = torch.linalg.lu_factor_ex(A)
     ms = cuda_ms(lambda: cl.lu_solve(LU, perm, b), REPS)
@@ -481,11 +536,11 @@ def time_factor_solve(cl, n: int, L: int, device, dtype=None) -> dict:
     import torch
     f32 = dtype == torch.float32
     sfx, e, tol = ("_f32", 4, F32_KERNEL_TOL) if f32 else ("", 8, KERNEL_TOL)
-    A, b = test_matrices(L - 1, n, seed=2, device=device, dtype=dtype)
+    A, b, g = timing_matrices(L, n, seed=2, device=device, dtype=dtype)
     xf = cl.factor_solve(A, b)
     xfr = cl.factor_solve_ref(A, b)
-    fs_err = float(torch.max(torch.abs(xf[:-1] - xfr[:-1])))
-    err = rel_err(xf[:-1], xfr[:-1])
+    fs_err = float(torch.max(torch.abs(xf[g] - xfr[g])))
+    err = rel_err(xf[g], xfr[g])
     assert err <= tol, f"factor_solve n={n} x {L}: rel err {err}"
     ms = cuda_ms(lambda: cl.factor_solve(A, b), REPS)
     hus = host_us(lambda: cl.factor_solve(A, b), REPS)
@@ -1359,6 +1414,230 @@ def pack_phase(device) -> dict:
     return by_tier
 
 
+def wire_system(sim, device):
+    """``sim`` as the server reads it: its wire form
+    (``utils.io.system_to_dict``) loaded back on ``device``."""
+    import tempfile
+    from pycatkin_tpu_torch.frontend.loader import read_from_input_file
+    from pycatkin_tpu_torch.utils.io import system_to_dict
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "mechanism.json")
+        with open(path, "w") as fh:
+            json.dump(system_to_dict(sim), fh)
+        return read_from_input_file(path, device=device)
+
+
+def solo_answer(sim, T, save_ts, device, tof_terms=None) -> str:
+    """``canonical_answer`` of the server's response to one request,
+    from a solo call on ``device`` at the coalescer's options (the
+    mechanism read back from its wire form)."""
+    import numpy as np
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.serve.protocol import canonical_answer, jsonable
+    from pycatkin_tpu_torch.serve.server import SUMMARY_KEYS
+    w = wire_system(sim, device)
+    spec = w.spec
+    conds = batch.stack_conditions([w.conditions(T=t, p=1.0e5) for t in T])
+    if save_ts is None:
+        mask = (engine.tof_mask_for(spec, tof_terms) if tof_terms
+                else None)
+        out = batch.sweep_steady_state(spec, conds, mask, abi=True,
+                                       device=device)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        result = {k: host[k] for k in SUMMARY_KEYS if k in host}
+        q = host["quarantined"]
+    else:
+        ys, ok = batch.batch_transient(spec, conds, save_ts, abi=True,
+                                       device=device)
+        ys = ys.cpu().numpy()
+        result = {"ok": ok.cpu().numpy(), "endpoint": ys[:, -1, :]}
+        q = ~np.isfinite(ys[:, -1, :]).all(axis=-1)
+    return canonical_answer({
+        "result": jsonable(result), "lanes": len(T),
+        "quarantine": {"count": int(q.sum()),
+                       "lanes": np.nonzero(q)[0].tolist()}})
+
+
+def serve_phase(device) -> dict:
+    """Phase 16 (see the module doc). Returns the launch counts by
+    ``(name, n, lanes)`` of each serve path: ``serve`` (16a's soak),
+    ``serve_transient`` and ``serve_full`` (16b)."""
+    import asyncio
+    import numpy as np
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.frontend import abi
+    from pycatkin_tpu_torch.models.synthetic import (
+        synthetic_system, synthetic_system_for_bucket)
+    from pycatkin_tpu_torch.ops import cuda_linalg as cl
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.serve import (ServeConfig, SweepServer,
+                                          TcpSweepClient)
+    from pycatkin_tpu_torch.serve.client import sweep_payload
+    from pycatkin_tpu_torch.serve.protocol import canonical_answer, jsonable
+    from pycatkin_tpu_torch.serve.server import SUMMARY_KEYS
+    from pycatkin_tpu_torch.serve.soak import check_soak_record, run_soak
+    from pycatkin_tpu_torch.utils.io import system_to_dict
+
+    # -- 16a: the soak, sweeps only -----------------------------------------
+    samples, timing = {}, []
+
+    def keep(i, sim, T, save_ts, resp):
+        if resp.get("ok"):
+            timing.append((resp["timing"]["queue_s"],
+                           resp["timing"]["solve_s"]))
+        if i < SERVE_AUDIT:
+            samples[i] = (sim, T, save_ts, resp)
+
+    rec, counts, syncs, wall = counted(lambda: run_soak(
+        n_requests=SERVE_REQUESTS, transport="tcp", device=str(device),
+        on_response=keep))
+    by_shape = dict(cl.LAUNCHES_BY_SHAPE)
+    problems = check_soak_record(rec)
+    sv = rec["serve"]
+    q = np.array(timing)
+    log(f"phase 16a serve soak: TCP, {rec['n_requests']} requests "
+        f"({rec['n_transient']} transient) over buckets {rec['buckets']}, "
+        f"{rec['lanes']} lanes each, "
+        f"{rec['mechs_per_bucket']} mechanisms a bucket, max_occupancy "
+        f"{rec['max_occupancy']}, concurrency {rec['concurrency']} | ok "
+        f"{rec['n_ok']} failed {rec['n_failed']} schema violations "
+        f"{rec['schema_violations']} | warm-up {rec['warmup']} | "
+        f"measured: p50 {sv['p50_s']:.4f} s p99 {sv['p99_s']:.4f} s mean "
+        f"{sv['mean_s']:.4f} s, {sv['throughput_rps']:.2f} requests/s, "
+        f"{sv['throughput_rps'] * rec['lanes']:.1f} lanes/s | queue_s "
+        f"mean {q[:, 0].mean():.4f} s vs solve_s mean {q[:, 1].mean():.4f} "
+        f"s | flushes {sv['flushes']} ({sv['flushes_after_warm']} after "
+        f"warm-up), mean occupancy {sv['mean_occupancy']:.3f}, zero-compile "
+        f"rate {sv['zero_compile_rate']}, drain burst ok "
+        f"{sv['drain_burst_ok']} | soak wall {rec['wall_s']:.1f} s (the "
+        f"whole run {wall:.1f} s) | host syncs {syncs} | launches {counts} "
+        f"by (kernel, n, lanes) {sorted(by_shape.items())}")
+    assert not problems, f"phase 16a: check_soak_record: {problems}"
+    assert counts["lu_factor"] > 0 and counts["lu_solve"] > 0, counts
+    assert len(samples) == SERVE_AUDIT, sorted(samples)
+    t0 = time.perf_counter()
+    for i in sorted(samples):
+        sim, T, save_ts, resp = samples[i]
+        assert canonical_answer(resp) == solo_answer(sim, T, save_ts,
+                                                     device), \
+            f"phase 16a: measured answer {i} differs from its solo call"
+    log(f"phase 16a serve audit: the first {SERVE_AUDIT} measured answers "
+        f"re-run as solo calls on the card "
+        f"({time.perf_counter() - t0:.1f} s): canonical_answer "
+        f"byte-identical")
+
+    # -- 16b: transients, then full width, each through its own server ---
+    def through_server(requests, max_occupancy=None):
+        async def go():
+            srv = await SweepServer(ServeConfig(
+                device=str(device), max_occupancy=max_occupancy)).start()
+            cli = await TcpSweepClient("127.0.0.1", srv.port).connect()
+            try:
+                return await requests(cli)
+            finally:
+                await cli.close()
+                await srv.drain()
+        return counted(lambda: asyncio.run(go()))
+
+    tsims = [synthetic_system_for_bucket(b, seed=sd, device=str(device))
+             for b, sd in SERVE_TRANSIENTS]
+    grid = [0.0] + [float(t) for t in np.logspace(-9, 0, 13)]
+    tT = [480.0, 493.0, 507.0, 520.0]
+
+    async def transients(cli):
+        t0 = time.perf_counter()
+        trs = await asyncio.gather(*(
+            cli.transient(system_to_dict(s), tT, grid, wait_budget_s=1.0)
+            for s in tsims))
+        return trs, time.perf_counter() - t0
+
+    (trs, tw), tcounts, tsyncs, _ = through_server(transients)
+    tby_shape = dict(cl.LAUNCHES_BY_SHAPE)
+    assert all(r.get("ok") for r in trs), [r.get("error") for r in trs]
+    packs = [r["pack"]["tenants"] for r in trs]
+    assert packs == [2, 2, 1], packs
+    t0 = time.perf_counter()
+    for s_, r in zip(tsims, trs):
+        assert canonical_answer(r) == solo_answer(s_, tT, grid, device), \
+            "phase 16b: a served transient differs from its solo call"
+    log(f"phase 16b serve transients: {len(tsims)} requests (bucket, seed) "
+        f"{list(SERVE_TRANSIENTS)}, {len(tT)} lanes each, the soak's grid "
+        f"0, 1e-9 .. 1 s, over TCP: packs {packs}, {tw:.3f} s round trip, "
+        f"timing {[r['timing'] for r in trs]}; each byte-identical to its "
+        f"solo batch_transient(abi=True) on the card "
+        f"({time.perf_counter() - t0:.1f} s of solo runs) | host syncs "
+        f"{tsyncs} | launches {tcounts} by (kernel, n, lanes) "
+        f"{sorted(tby_shape.items())}")
+    assert tcounts["lu_factor"] > 0 and tcounts["lu_solve"] > 0, tcounts
+
+    fsim = synthetic_system(24, 32, seed=0, device=str(device))
+    fT = [float(t) for t in np.linspace(400.0, 800.0, FLAGSHIP_LANES)]
+    fterm = [fsim.spec.rnames[-1]]
+    psims = [synthetic_system_for_bucket(128, seed=sd, n_species=24,
+                                         n_reactions=32, device=str(device))
+             for sd in PACK_SEEDS]
+    pT = [float(t) for t in np.linspace(400.0, 800.0, PACK_LANES)]
+
+    async def full_width(cli):
+        t0 = time.perf_counter()
+        one = await cli.sweep(system_to_dict(fsim), fT, tof_terms=fterm,
+                              wait_budget_s=0.0, deadline_class="batch")
+        t1 = time.perf_counter()
+        four = await asyncio.gather(*(
+            cli.request(sweep_payload(
+                system_to_dict(s), pT, tof_terms=[s.spec.rnames[-1]],
+                wait_budget_s=30.0, deadline_class="batch",
+                req_id=f"tenant{k}"))
+            for k, s in enumerate(psims)))
+        return one, four, t1 - t0, time.perf_counter() - t1
+
+    (one, four, w1, w4), fcounts, fsyncs, fwall = through_server(
+        full_width, max_occupancy=len(PACK_SEEDS))
+    fby_shape = dict(cl.LAUNCHES_BY_SHAPE)
+    assert one.get("ok"), one.get("error")
+    assert all(r.get("ok") for r in four), [r.get("error") for r in four]
+    t0 = time.perf_counter()
+    want = solo_answer(fsim, fT, None, device, tof_terms=fterm)
+    assert canonical_answer(one) == want, \
+        "phase 16b: the 65,536-lane answer differs from the direct sweep"
+    ws = [wire_system(s, device) for s in psims]
+    pconds = [batch.stack_conditions([w.conditions(T=t, p=1.0e5)
+                                      for t in pT]) for w in ws]
+    pmasks = [engine.tof_mask_for(w.spec, [w.spec.rnames[-1]]) for w in ws]
+    direct = batch.packed_sweep_steady_state(
+        [w.spec for w in ws], pconds, pmasks, device=device)
+    for k, (resp, out) in enumerate(zip(four, direct)):
+        assert resp["pack"]["tenants"] == len(PACK_SEEDS), resp["pack"]
+        host = {n: v.cpu().numpy() for n, v in out.items()}
+        qd = host["quarantined"]
+        ref = canonical_answer({
+            "result": jsonable({n: host[n] for n in SUMMARY_KEYS
+                                if n in host}),
+            "lanes": len(pT),
+            "quarantine": {"count": int(qd.sum()),
+                           "lanes": np.nonzero(qd)[0].tolist()}})
+        assert canonical_answer(resp) == ref, \
+            f"phase 16b: tenant {k} differs from the direct packed sweep"
+    st = abi.lower_spec(fsim.spec).static
+    log(f"phase 16b serve full width: one {FLAGSHIP_LANES}-lane sweep "
+        f"request of the ABI flagship (S={st.n_species} R={st.n_reactions} "
+        f"D={st.n_dynamic}, TOF) {w1:.3f} s round trip "
+        f"({FLAGSHIP_LANES / w1:.1f} lanes/s; timing {one['timing']}), "
+        f"byte-identical to a direct sweep_steady_state(abi=True) | "
+        f"{len(PACK_SEEDS)} tenants x {PACK_LANES} lanes submitted together "
+        f"{w4:.3f} s round trip ({len(PACK_SEEDS) * PACK_LANES / w4:.1f} "
+        f"lanes/s), one packed flush (pack {four[0]['pack']}), each "
+        f"byte-identical to a direct packed_sweep_steady_state of the four "
+        f"({time.perf_counter() - t0:.1f} s of direct runs) | host syncs "
+        f"{fsyncs} | wall {fwall:.1f} s | launches {fcounts} by (kernel, "
+        f"n, lanes) {sorted(fby_shape.items())}")
+    assert fcounts["lu_factor"] > 0 and fcounts["lu_solve"] > 0, fcounts
+
+    return {"serve": by_shape, "serve_transient": tby_shape,
+            "serve_full": fby_shape}
+
+
 def start_transient_cpu_reruns():
     """Start the CPU re-runs of phase 12's paths and of phase 7's two,
     one worker process each (spawned, so they hold no CUDA context), to
@@ -1377,8 +1656,10 @@ def start_transient_cpu_reruns():
 def transient_step_profile(spec, conds, abi, opts, device, label) -> str:
     """Phase 12: the first :data:`STEP_PROFILE_STEPS` steps of a transient
     path's first save interval, [0, 1e-7] s, on its own lanes under
-    torch.profiler (after one unprofiled run of them): per batch step
-    the wall, the device's busy time and the number of device kernels.
+    torch.profiler (after one unprofiled run of them, whose launches,
+    host syncs and states the profiled run must repeat exactly): per
+    batch step the wall, the device's busy time and the number of device
+    kernels.
     (Few steps: the profiler's own processing grows with its events.)
     Returns the log text."""
     import torch
@@ -1398,12 +1679,16 @@ def transient_step_profile(spec, conds, abi, opts, device, label) -> str:
     capped = opts._replace(max_steps=STEP_PROFILE_STEPS)
     run = lambda: ode._advance_to(lanes, ct.y0.contiguous(), t0, 1e-7, h0,
                                   capped)
-    run()
+    first, counts, syncs, _ = counted(run)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = counted(run)
+        again, wcounts, wsyncs, wall = counted(run)
     steps = ode.SYNCS["ode_active"] - 1
+    # The two runs take the same steps, launches and syncs, bit for bit.
+    assert wcounts == counts and wsyncs == syncs, (label, wcounts, counts,
+                                                   wsyncs, syncs)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), label
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -1417,9 +1702,12 @@ def transient_step_profile(spec, conds, abi, opts, device, label) -> str:
 def transient_path(path, shape, L, abi, method, device, pool,
                    pending) -> tuple:
     """Phase 12: ``batch_transient`` of synthetic ``shape`` seed 0 over
-    ``L`` lanes at T 400-800 K and :func:`transient_grid`, twice (first
-    and warm), with walls, rates, peak memory, host syncs, steps, the
-    finish and the launches; then the CPU re-run of its
+    ``L`` lanes at T 400-800 K and :func:`transient_grid`, with walls,
+    rates, peak memory, host syncs, steps, the finish and the launches;
+    re-run warm, with the same launches and host syncs, where the first
+    run took at most :data:`WARM_RERUN_MAX_S`, and its step profile's two
+    runs held to each other (:func:`transient_step_profile`); then the
+    CPU re-run of its
     :data:`TRANSIENT_SUBSET` lanes (``pending``): ``ok`` and the
     diagnostics equal, ``ys`` within rtol 1e-5 / atol 1e-12; the lanes
     outside it re-run on the CPU (in ``pool``) with T up, T down and
@@ -1448,8 +1736,12 @@ def transient_path(path, shape, L, abi, method, device, pool,
     peak = torch.cuda.max_memory_allocated() / 2**20
     steps = ode.step_counts()
     finish = (ode.FINISH["lanes"], int(ode.FINISH["rescued"]))
-    _, wcounts, wsyncs, warm = counted(lambda: run({}))
-    assert wcounts == counts and wsyncs == syncs, (wcounts, wsyncs)
+    walls = f"wall {wall:.3f} s (one run: the first)"
+    if wall <= WARM_RERUN_MAX_S:
+        first = wall
+        _, wcounts, wsyncs, wall = counted(lambda: run({}))
+        assert wcounts == counts and wsyncs == syncs, (wcounts, wsyncs)
+        walls = f"wall first {first:.3f} s warm {wall:.3f} s"
     profiles = [transient_step_profile(spec, conds, abi, opts, device,
                                        f"phase 12 {path} step profile")]
     if not abi:
@@ -1465,9 +1757,9 @@ def transient_path(path, shape, L, abi, method, device, pool,
         f"{finish[1]} rescued | quarantined {diag['quarantined']} | steps "
         f"(lane-steps) "
         f"accepted {steps['accepted']} rejected {steps['rejected']} steady "
-        f"{steps['steady']} | host syncs {syncs} | wall first {wall:.3f} s "
-        f"warm {warm:.3f} s, {L / warm:.1f} lanes/s, "
-        f"{L * len(grid) / warm:.1f} save points/s, peak memory "
+        f"{steps['steady']} | host syncs {syncs} | {walls}, "
+        f"{L / wall:.1f} lanes/s, "
+        f"{L * len(grid) / wall:.1f} save points/s, peak memory "
         f"{peak:.1f} MiB | launches {counts}")
     for text in profiles:
         log(text)
@@ -1639,8 +1931,9 @@ def sum_rule(label, spec, conds, x0, xi, device) -> None:
 
 
 def drc_path(label, spec, conds, x0, mode, device) -> tuple:
-    """Phase 13: one DRC path on the card, twice (first and warm); logs
-    walls, lanes/s, peak memory, host syncs, NaN lanes, the ``ok``
+    """Phase 13: one DRC path on the card, first and, where the first
+    took at most :data:`WARM_RERUN_MAX_S`, warm with the same launches;
+    logs walls, lanes/s, peak memory, host syncs, NaN lanes, the ``ok``
     count and launches. Returns ``(xi, ok, launch counts)``."""
     import torch
     L = len(conds.T)
@@ -1648,16 +1941,18 @@ def drc_path(label, spec, conds, x0, mode, device) -> tuple:
     (xi, ok), counts, syncs, wall = counted(
         lambda: drc_run(spec, conds, x0, mode, device))
     peak = torch.cuda.max_memory_allocated() / 2**20
-    _, wcounts, _, warm = counted(
-        lambda: drc_run(spec, conds, x0, mode, device))
-    assert wcounts == counts, (wcounts, counts)
+    walls = f"wall first {wall:.3f} s"
+    if wall <= WARM_RERUN_MAX_S:
+        _, wcounts, _, wall = counted(
+            lambda: drc_run(spec, conds, x0, mode, device))
+        assert wcounts == counts, (wcounts, counts)
+        walls += f" warm {wall:.3f} s"
     nan = int((~torch.isfinite(xi).all(dim=1)).sum())
     solves = L * (2 * spec.n_reactions + 1) if mode == "fd" else L
     log(f"{label}: {L} lanes ({solves} steady solves), n_dyn "
         f"{len(spec.dynamic_indices)} | ok {int(ok.sum())} | NaN lanes "
-        f"{nan} | host syncs {syncs} | wall first {wall:.3f} s warm "
-        f"{warm:.3f} s, {L / warm:.1f} lanes/s | peak memory {peak:.1f} "
-        f"MiB | launches {counts}")
+        f"{nan} | host syncs {syncs} | {walls}, {L / wall:.1f} lanes/s | "
+        f"peak memory {peak:.1f} MiB | launches {counts}")
     assert xi.shape == (L, spec.n_reactions), xi.shape
     return xi, ok, counts
 
@@ -1861,14 +2156,15 @@ def run_phases(pool, pending, large) -> int:
                    cpu=large[1].get())
 
     # -- phase 12: the transient, three paths --------------------------
-    tcounts = {}
+    # Their CPU comparisons wait: the first two until after phase 13, the
+    # last until after phase 9's timings, so the card runs on meanwhile.
+    tcounts, parities = {}, []
     for (path, shape, Lt, use_abi, method), res in zip(TRANSIENT_PATHS,
                                                         pending):
         tc, nt, parity = transient_path(path, shape, Lt, use_abi, method,
                                         device, pool, res)
         tcounts[path] = (tc, nt, Lt)
-        if path != TRANSIENT_PATHS[-1][0]:
-            parity()
+        parities.append(parity)
 
     # -- phase 13: degree of rate control --------------------------------
     left = lambda: max(TRANSIENT_GATE_BY - (time.perf_counter() - START), 1.0)
@@ -1907,6 +2203,9 @@ def run_phases(pool, pending, large) -> int:
         f"worker, and with T up, T down, kscale up one ulp ({cwall:.1f} s): "
         f"{drc_parity('phase 13c', xc[fi], okc[fi], runs)}")
 
+    for parity in parities[:-1]:
+        parity()
+
     # -- phase 14: the f32-polish tier on three paths ---------------------
     from pycatkin_tpu_torch.parallel import batch
     run64 = lambda: batch.sweep_steady_state(spec, conds, mask,
@@ -1931,6 +2230,9 @@ def run_phases(pool, pending, large) -> int:
 
     # -- phase 15: the packed multi-tenant sweep ---------------------------
     pack_counts = pack_phase(device)
+
+    # -- phase 16: the sweep server on the card ----------------------------
+    serve_counts = serve_phase(device)
 
 
     # -- phase 9, kernels line: one row per kernel per path ---------------
@@ -1978,6 +2280,19 @@ def run_phases(pool, pending, large) -> int:
     timed += on_path("packed", pack_counts["f64"], pack_rows)
     timed += on_path("packed_f32", pack_counts["f32-polish"],
                      f32_abi + pack_rows)
+    # Phase 16: each serve path's kernels at every (n, lanes) they
+    # launched at, each shape checked and timed as it launched (the
+    # full-width sweep's n = 32 x 65,536 is phase 5's).
+    shape_rows = {(low.static.n_dynamic, L): abi_rows[:2]}
+    for path in ("serve", "serve_transient", "serve_full"):
+        for (name, n, lanes), c in sorted(serve_counts[path].items()):
+            rows = shape_rows.setdefault((n, lanes), [])
+            if not any(r["name"] == name for r in rows):
+                rows += ([time_factor_solve(cl, n, lanes, device)]
+                         if name == "factor_solve"
+                         else time_lu(cl, n, lanes, device))
+            timed += [(path, {name: c}, r) for r in rows
+                      if r["name"] == name]
     replaces = {
         "lu_factor": "pycatkin_tpu/ops/pallas_linalg.py:204",
         "lu_solve": "pycatkin_tpu/ops/pallas_linalg.py:219",
@@ -2027,7 +2342,7 @@ def run_phases(pool, pending, large) -> int:
             f"{r['max_abs_err']:.3e}")
     # Phase 12's last CPU comparison: its re-run had phases 13-15 and the
     # timings to finish.
-    parity()
+    parities[-1]()
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -444,10 +444,11 @@ def _transient_closures(ds: DeviceSpec, cond: Conditions,
                         steady_rel: float = ODEOptions().steady_rel,
                         kf=None, kr=None):
     """``lanes(idx) -> ode.OdeFns``: the integrator's closures over the
-    lanes ``idx`` (None: all lanes), with two oracles on the net and
-    gross fluxes of each lane. ``steady`` (freeze): ``|net| <= 8 eps
-    gross`` everywhere, the f64 cancellation floor of the flux sums, no
-    absolute term (a metastable plateau has tiny ``|net|``).
+    lanes ``idx`` (host int64 indices; None: all lanes), with two
+    oracles on the net and gross fluxes of each lane. ``steady``
+    (freeze): ``|net| <= 8 eps gross`` everywhere, the f64 cancellation
+    floor of the flux sums, no absolute term (a metastable plateau has
+    tiny ``|net|``).
     ``relaxed`` (accelerate): ``|net| <= steady_rel gross`` everywhere,
     the steady verdict's tolerance, which waives the noise-dominated
     local-error test while the state keeps evolving."""
@@ -455,7 +456,8 @@ def _transient_closures(ds: DeviceSpec, cond: Conditions,
     floor = 8.0 * float(torch.finfo(torch.float64).eps)
 
     def lanes(idx=None):
-        o = ops if idx is None else ops.lanes(idx)
+        o = ops if idx is None else ops.lanes(
+            torch.as_tensor(idx, device=ops.kf.device))
 
         def oracles(y):
             net, gross = _full_rhs(ds, o, y, True)
@@ -477,7 +479,7 @@ def transient_state(ds: DeviceSpec, cond: Conditions, state, save_ts,
 
 
 def transient_finish(ds: DeviceSpec, cond: Conditions, y_last, ok,
-                     sopts: SolverOptions = SolverOptions()):
+                     sopts: SolverOptions = SolverOptions(), idx=None):
     """Newton finish of the lanes that did not reach the end of the
     grid: where relaxed stepping ran out of ``max_steps`` but the state
     already satisfies the steady verdict, land on the attractor with the
@@ -489,9 +491,11 @@ def transient_finish(ds: DeviceSpec, cond: Conditions, y_last, ok,
     The JAX package runs the solve on every lane and keeps it where
     ``~ok & good``, then returns ``ok | good``; neither touches a lane
     that is ``ok``, so only the other lanes are solved here (picking
-    them is one counted sync)."""
-    ode.SYNCS["finish_lanes"] += 1
-    idx = np.flatnonzero(~ok.cpu().numpy())
+    them is one counted sync, unless the caller passes them as ``idx``,
+    host indices of the lanes that are not ``ok``)."""
+    if idx is None:
+        ode.SYNCS["finish_lanes"] += 1
+        idx = np.flatnonzero(~ok.cpu().numpy())
     if idx.size == 0:
         return y_last, ok
     sel = torch.as_tensor(idx, device=y_last.device)

@@ -18,9 +18,15 @@ carry the residual ``F = -x`` (``dyn_mask``), so the padded Jacobian is
 
 Several mechanisms of one bucket pack into a :class:`PackedLowered`
 (:func:`pack_lowered`), the unit of the packed multi-tenant sweep
-(``parallel.batch.packed_sweep_steady_state``). The fingerprints and
-program-spec interning that key the JAX package's compile caches have
-nothing to key in an eager port and are not ported.
+(``parallel.batch.packed_sweep_steady_state``).
+
+Each bucket has the JAX package's fingerprint string
+(:func:`abi_fingerprint_of`, ``AbiLowered.abi_fingerprint``; a pack's
+adds its tenant-count tag ``:tK``). The port compiles nothing per shape,
+so no cache is keyed on it; the request coalescer
+(``parallel.dispatch.SweepCoalescer``) groups requests by it, so only
+mechanisms of one bucket are packed together. The program-spec
+interning that keys the JAX package's compile caches is not ported.
 """
 
 from __future__ import annotations
@@ -62,6 +68,34 @@ class AbiStatic(NamedTuple):
     reactor_type: int
     desorption_model: str
     precision: str = "f64"
+
+
+def tier_tag(precision: str) -> str:
+    """Fingerprint suffix of a precision tier: empty for ``"f64"`` (the
+    JAX package's ``precision.tier_tag``)."""
+    return "" if precision == "f64" else ":p32"
+
+
+def tenant_tag(k: int) -> str:
+    """Fingerprint suffix of a pack's power-of-two tenant bucket
+    (``:tK``); empty for ``k <= 1`` (the JAX package's
+    ``compile_pool.tenant_tag``)."""
+    k = int(k)
+    if k <= 1:
+        return ""
+    if k & (k - 1):
+        raise ValueError(f"tenant sub-buckets are powers of two, got {k} "
+                         f"(pad the tenant axis with _pow2_at_least)")
+    return f":t{k}"
+
+
+def abi_fingerprint_of(static: AbiStatic) -> str:
+    """The bucket's fingerprint, the JAX package's string:
+    ``abi-v{ver}:s{S}:r{R}:d{D}:rt{rt}:{desorption}{tier_tag}``."""
+    return ("abi-v{0}:s{1}:r{2}:d{3}:rt{4}:{5}{6}".format(
+        static.abi_version, static.n_species, static.n_reactions,
+        static.n_dynamic, static.reactor_type, static.desorption_model,
+        tier_tag(static.precision)))
 
 
 class AbiBucketError(ValueError):
@@ -289,6 +323,11 @@ class AbiLowered:
         self.lyap_q, lyap_ok = _lyapunov_operands(base, static)
         self.lyap_ok = float(lyap_ok)
 
+    @property
+    def abi_fingerprint(self) -> str:
+        """The bucket's fingerprint (:func:`abi_fingerprint_of`)."""
+        return abi_fingerprint_of(self.static)
+
     # -- boundary padding -------------------------------------------------
     def pad_conditions(self, conds: Conditions) -> Conditions:
         S, R = self.static.n_species, self.static.n_reactions
@@ -391,6 +430,12 @@ class PackedLowered:
     def occupancy(self) -> float:
         """Tenants over the power-of-two tenant bucket."""
         return self.k / self.k_bucket
+
+    @property
+    def abi_fingerprint(self) -> str:
+        """The bucket's fingerprint plus the tenant-count tag
+        (:func:`tenant_tag` of ``k_bucket``), as in the JAX package."""
+        return abi_fingerprint_of(self.static) + tenant_tag(self.k_bucket)
 
     def operands(self) -> dict:
         """The padded specs' :data:`OPERAND_FIELDS`, and ``dyn_mask``,

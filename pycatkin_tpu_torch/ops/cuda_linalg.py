@@ -25,7 +25,8 @@ the tensor's type) and a CUDA tensor to the kernel (``pk_*`` in float64,
 ``pk_*_f32`` in float32: one templated source). A CUDA tensor is
 never served by the plain version: a kernel that cannot launch raises.
 Each launch adds one to :data:`LAUNCHES` (float64) or
-:data:`LAUNCHES_F32` (float32).
+:data:`LAUNCHES_F32` (float32), and to :data:`LAUNCHES_BY_SHAPE` under
+its size and lane count.
 
 The kernels serve every n (``csrc/linalg.cu``). At n = 16 and 32 all
 three take the warp tier: a half-warp or warp per lane with rows in
@@ -60,6 +61,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -69,6 +71,9 @@ import torch
 LAUNCHES = {"lu_factor": 0, "lu_solve": 0, "factor_solve": 0}
 #: The same for the float32 kernels.
 LAUNCHES_F32 = dict(LAUNCHES)
+#: Launches by ``(name, n, lanes)`` (float32 names end ``_f32``),
+#: counted with the two above.
+LAUNCHES_BY_SHAPE: dict = {}
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "linalg.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
@@ -77,6 +82,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
 
 #: The C entry points' suffix for each element type the kernels take.
 _SUFFIX = {torch.float64: "", torch.float32: "_f32"}
@@ -87,10 +93,14 @@ def reset_launches() -> None:
     for counter in (LAUNCHES, LAUNCHES_F32):
         for k in counter:
             counter[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
-def _count(name, dtype) -> None:
-    (LAUNCHES if dtype == torch.float64 else LAUNCHES_F32)[name] += 1
+def _count(name, dtype, n, lanes) -> None:
+    f64 = dtype == torch.float64
+    (LAUNCHES if f64 else LAUNCHES_F32)[name] += 1
+    key = (name if f64 else name + "_f32", int(n), int(lanes))
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -136,8 +146,17 @@ def build(verbose: bool = False) -> Path:
 
 
 def _lib():
+    """The loaded kernel library, built from source at first use. Each
+    process's first call counts one ``pycatkin_compile_total`` (label
+    ``kind="build"`` when it ran nvcc, ``"load"`` when a library built
+    from the same source was there)."""
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        built = not library_path().exists()
         lib = ctypes.CDLL(str(build()))
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for sfx in _SUFFIX.values():
@@ -153,7 +172,17 @@ def _lib():
                 fn.restype = ci
             ws.restype = ll
         _LIB = lib
+        from ..obs import metrics
+        metrics.counter("pycatkin_compile_total",
+                        "CUDA kernel library builds and loads").inc(
+                            kind="build" if built else "load")
     return _LIB
+
+
+def load():
+    """Build (if needed) and load the kernel library now, rather than at
+    the first launch."""
+    _lib()
 
 
 def _entry(name, dtype):
@@ -278,7 +307,7 @@ def lu_factor(A):
         err = fn(A.data_ptr(), LU.data_ptr(), perm.data_ptr(), L, n,
                  _stream(A))
     _raise_on("lu_factor", err)
-    _count("lu_factor", A.dtype)
+    _count("lu_factor", A.dtype, n, L)
     return LU, perm
 
 
@@ -303,7 +332,7 @@ def lu_solve(LU, perm, b):
         err = fn(LU.data_ptr(), perm.data_ptr(), b.data_ptr(), x.data_ptr(),
                  L, n, k, _stream(LU))
     _raise_on("lu_solve", err)
-    _count("lu_solve", LU.dtype)
+    _count("lu_solve", LU.dtype, n, L)
     return x
 
 
@@ -328,5 +357,5 @@ def factor_solve(A, b):
             A.data_ptr(), b.data_ptr(), x.data_ptr(),
             None if work is None else work.data_ptr(), L, n, k, _stream(A))
     _raise_on("factor_solve", err)
-    _count("factor_solve", A.dtype)
+    _count("factor_solve", A.dtype, n, L)
     return x

@@ -30,7 +30,9 @@ screen, the certificate, TOF and the rescue tail stay float64.
 :func:`stability_mask` and :func:`stack_conditions` are the JAX
 package's entries of the same names,
 and so is :func:`batch_transient`, the lane-batched transient
-(``engine.transient``) with its diagnostics bundle.
+(``engine.transient``) with its diagnostics bundle;
+:func:`packed_batch_transient` integrates K mechanisms of one ABI bucket
+as one lane batch, each tenant's answer its solo transient's.
 """
 
 from __future__ import annotations
@@ -930,3 +932,150 @@ def batch_transient(spec: ModelSpec, conds: Conditions, save_ts,
     if low is not None:
         ys = low.unpad_y(ys)
     return ys, ok
+
+
+def _packed_transient_lanes(tenant_lanes, L: int):
+    """The integrator's ``lanes(idx)`` over K tenants' lanes stacked
+    tenant-major (``L`` each) from their own ``lanes`` closures. ``idx``
+    (host, ascending) splits into each tenant's block; a tenant with no
+    lane in it is skipped, one with all ``L`` lanes takes its closures
+    over every lane (``lanes(None)``, as its solo run does until a lane
+    stops), and each evaluates a fresh copy of its rows, so every
+    closure sees its solo run's shapes and layout; ``blocks`` carries
+    the tenants' lane counts to the step controller (``ode._blockwise``)."""
+    K = len(tenant_lanes)
+
+    def lanes(idx=None):
+        if idx is None:
+            parts = [(fn(None), L) for fn in tenant_lanes]
+        else:
+            cut = np.searchsorted(idx, np.arange(K + 1) * L)
+            parts = []
+            for k, fn in enumerate(tenant_lanes):
+                n = int(cut[k + 1] - cut[k])
+                if n:
+                    parts.append((fn(None if n == L else
+                                     idx[cut[k]:cut[k + 1]] - k * L), n))
+        fns = [p for p, _ in parts]
+        sizes = [n for _, n in parts]
+
+        def each(name):
+            def call(y):
+                outs = [getattr(f, name)(yk.clone())
+                        for f, yk in zip(fns, y.split(sizes))]
+                if isinstance(outs[0], tuple):
+                    return tuple(torch.cat(o) for o in zip(*outs))
+                return torch.cat(outs)
+            return call
+        return ode.OdeFns(f=each("f"), jac=each("jac"),
+                          oracles=each("oracles"), blocks=tuple(sizes))
+    return lanes
+
+
+def packed_batch_transient(specs, conds, save_ts,
+                           opts: ODEOptions = ODEOptions(), chunk: int = 8,
+                           device=None) -> list:
+    """Multi-tenant :func:`batch_transient` (the JAX package's
+    ``packed_batch_transient``): K mechanisms that lower into one ABI
+    bucket integrate over one shared save grid as one lane batch, one
+    step loop with one stage-matrix ``lu_factor`` launch and one counted
+    sync a batch step, and come back as a list of per-tenant ``(ys,
+    ok)``, each bit for bit that mechanism's solo ``batch_transient(...,
+    abi=True)`` (``ys`` unpadded).
+
+    Each tenant's closures run on its own block of the lanes still
+    stepping (:func:`_packed_transient_lanes`); the step controller, the
+    per-lane kernels and the sync are shared. The Newton finish picks
+    the lanes of every tenant with one sync, then finishes each tenant's
+    on its own. A tenant with a non-finite endpoint records a
+    ``transient:nonfinite`` degradation event (one more counted sync,
+    the bundle's).
+
+    ``conds`` is one value shared by every tenant or a sequence of one
+    per tenant; the tenants must share a lane count (``ValueError``).
+    One tenant runs its solo transient; a mechanism that fits no bucket
+    sends every tenant to its solo transient (with a ``degradation``
+    event); tenants of different buckets raise
+    :class:`~..frontend.abi.AbiBucketError`. ``chunk`` has no effect
+    (as for :func:`batch_transient`). ``device=None`` runs on the CUDA
+    card; pass ``"cpu"`` for the CPU."""
+    from ..obs import metrics as _metrics
+    from ..utils.profiling import host_sync, record_event, span
+    from ..utils.retry import call_with_backend_retry
+
+    specs = list(specs)
+    k = len(specs)
+    if k == 0:
+        return []
+    shared = not isinstance(conds, (list, tuple)) or isinstance(conds,
+                                                                Conditions)
+    conds_list = [conds] * k if shared else list(conds)
+    if len(conds_list) != k:
+        raise ValueError(f"conds: {len(conds_list)} entries for {k} "
+                         f"tenants")
+
+    def solo():
+        return [batch_transient(s, c, save_ts, opts=opts, chunk=chunk,
+                                abi=True, device=device)
+                for s, c in zip(specs, conds_list)]
+
+    if k == 1:
+        return solo()
+    lows = [s if isinstance(s, _abi.AbiLowered) else _abi.maybe_lower(s)
+            for s in specs]
+    if any(low is None for low in lows):
+        record_event("degradation", label="packed:solo-fallback",
+                     detail="a mechanism fits no ABI bucket; running "
+                            "tenants as solo transients", tenants=k)
+        _metrics.counter(
+            "pycatkin_packed_solo_fallbacks_total",
+            "packed sweep requests degraded to per-tenant solo "
+            "sweeps").inc()
+        return solo()
+    pack = _abi.pack_lowered(lows)
+    lanes = [len(np.asarray(c.T)) for c in conds_list]
+    if len(set(lanes)) != 1:
+        raise ValueError(f"packed tenants must share a lane count, got "
+                         f"{lanes}")
+    L = lanes[0]
+    _metrics.counter(
+        "pycatkin_packed_transient_sweeps_total",
+        "packed multi-tenant transient dispatches per tenant "
+        "sub-bucket").inc(bucket=pack.abi_fingerprint)
+    bound = [_bind(low, low.pad_conditions(c), None, device)[:2]
+             for low, c in zip(lows, conds_list)]
+
+    def run_packed():
+        tenant_lanes = [engine._transient_closures(
+            ds, c, steady_rel=opts.steady_rel) for ds, c in bound]
+        y0 = torch.cat([c.y0 for _, c in bound]).contiguous()
+        ys, ok = ode.integrate(_packed_transient_lanes(tenant_lanes, L),
+                               y0, save_ts, opts)
+        ode.SYNCS["finish_lanes"] += 1
+        not_ok = np.flatnonzero(~ok.cpu().numpy())
+        cut = np.searchsorted(not_ok, np.arange(k + 1) * L)
+        out = []
+        for i, (ds, c) in enumerate(bound):
+            ys_k = ys[i * L:(i + 1) * L]
+            y_fin, ok_k = engine.transient_finish(
+                ds, c, ys_k[:, -1], ok[i * L:(i + 1) * L],
+                sopts=engine.finish_options(opts),
+                idx=not_ok[cut[i]:cut[i + 1]] - i * L)
+            ys_k[:, -1] = y_fin
+            out.append((ys_k, ok_k))
+        return out
+
+    with span("packed transient sweep", tenants=pack.k,
+              k_bucket=pack.k_bucket, lanes=L):
+        out = call_with_backend_retry(run_packed,
+                                      label="packed batched transient")
+    nonfinite = torch.stack([
+        torch.sum(~torch.all(torch.isfinite(ys[:, -1, :]), dim=-1))
+        for ys, _ in out])
+    ode.SYNCS["transient_bundle"] += 1
+    n_quar = int(host_sync(nonfinite, "packed transient bundle").sum())
+    if n_quar:
+        record_event("degradation", label="transient:nonfinite",
+                     detail="transient lanes with non-finite endpoints",
+                     lanes=n_quar)
+    return [(low.unpad_y(ys).clone(), ok) for low, (ys, ok) in zip(lows, out)]

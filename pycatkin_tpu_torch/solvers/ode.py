@@ -147,6 +147,9 @@ class OdeFns(NamedTuple):
     f: Callable
     jac: Callable
     oracles: Optional[Callable] = None
+    # Lane counts of the independent blocks of a packed batch (None: one
+    # block); see _blockwise.
+    blocks: Optional[tuple] = None
 
 
 def _fma(a, b, c):
@@ -272,6 +275,20 @@ def _esdirk4_step(f, jac, y, t, h, opts: ODEOptions, f0=None):
                                                           math.inf)), ok
 
 
+def _blockwise(fn, x, blocks):
+    """``fn(x)`` for an elementwise ``fn``, evaluated on a fresh copy of
+    each block of lanes (``blocks``: their counts; None: ``x`` whole).
+    On the CPU, ATen runs a transcendental such as ``pow`` through SIMD
+    code on whole vector chunks and scalar code on the tail, which round
+    differently, so an element's result depends on its position in the
+    batch; per block, a packed tenant's lanes get their solo run's. On
+    the card every element goes through the same scalar code, so the
+    batch is one call there."""
+    if blocks is None or x.device.type != "cpu":
+        return fn(x)
+    return torch.cat([fn(b.clone()) for b in x.split(list(blocks))])
+
+
 # Controller exponent: err ~ h^(q+1) with q the embedded order, so the
 # optimal-step factor is err_ratio^(-1/(q+1)).
 _STEP_FNS = {"trbdf2": (_trbdf2_step, 1.0 / 3.0),
@@ -307,7 +324,8 @@ def _step(fns: OdeFns, y, t, h, k, ok, t1: float, opts: ODEOptions,
     relaxed = guard & small_move
     accept = step_ok & ((err_ratio <= 1.0) | relaxed)
     factor = torch.where(err_ratio > 0,
-                         opts.safety * err_ratio ** (-ctrl_exp),
+                         _blockwise(lambda e: opts.safety * e ** (-ctrl_exp),
+                                    err_ratio, fns.blocks),
                          opts.max_factor)
     # A non-finite factor reads as "shrink" (clamp propagates NaN).
     factor = torch.where(torch.isfinite(factor), factor, opts.min_factor)
@@ -335,10 +353,11 @@ def _advance_to(lanes: Callable, y, t0, t1: float, h_init,
     Returns ``(y(t1), last_h, ok)``.
 
     ``lanes(idx) -> OdeFns`` gives the closures over the lanes ``idx``
-    (a long tensor; None: all lanes). A lane steps while ``t < t1``, it
-    has taken fewer than ``max_steps`` steps in this interval and its
-    step has not collapsed (``h <= 1e-250``); the batch shrinks to the
-    lanes still stepping whenever one stops."""
+    (an int64 numpy array on the host, ascending; None: all lanes). A
+    lane steps while ``t < t1``, it has taken fewer than ``max_steps``
+    steps in this interval and its step has not collapsed (``h <=
+    1e-250``); the batch shrinks to the lanes still stepping whenever one
+    stops."""
     if opts.method not in _STEP_FNS:
         raise ValueError(f"unknown ODE method {opts.method!r}: "
                          f"use one of {sorted(_STEP_FNS)}")
@@ -348,7 +367,7 @@ def _advance_to(lanes: Callable, y, t0, t1: float, h_init,
     t1 = float(t1)
     full = [y, t0, h_init, torch.zeros(L, dtype=torch.int64, device=dev),
             torch.ones(L, dtype=torch.bool, device=dev)]
-    work, sel, fns = full, None, lanes(None)
+    work, sel, sel_h, fns = full, None, None, lanes(None)
     while True:
         _, t, _, k, ok = work
         active = (t < t1) & (k < opts.max_steps) & ok
@@ -359,10 +378,11 @@ def _advance_to(lanes: Callable, y, t0, t1: float, h_init,
                 a.index_copy(0, sel, w) for a, w in zip(full, work)]
             if not act.any():
                 break
-            keep = torch.as_tensor(np.flatnonzero(act), device=dev)
-            sel = keep if sel is None else sel[keep]
+            keep = np.flatnonzero(act)
+            sel_h = keep if sel_h is None else sel_h[keep]
+            sel = torch.as_tensor(sel_h, device=dev)
             work = [a[sel] for a in full]
-            fns = lanes(sel)
+            fns = lanes(sel_h)
         work = _step(fns, *work, t1, opts, step_fn, ctrl_exp)
     y, t, h, _, ok = full
     return y, h, ok & (t >= t1)

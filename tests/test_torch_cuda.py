@@ -651,3 +651,106 @@ def test_drc_at_n165_on_the_card_matches_the_cpu(device):
             assert cl.LAUNCHES["factor_solve"] == 3, cl.LAUNCHES
     assert xis[0].shape == (4, spec.n_reactions)
     _drc_close(xis[0].numpy(), xis[1].numpy(), "xi")
+
+
+def test_packed_transient_on_the_card_matches_solo_transients(device):
+    """``packed_batch_transient`` of two tenants of bucket 32 (synthetic
+    (12, 14) seeds 1 and 4, 4 lanes each at T 480-545 K + 2 seed, grid
+    ``[0] + logspace(-9, -2, 9)``) on the card: each tenant bit for bit
+    its solo ``batch_transient(abi=True)`` on the card, one
+    ``lu_factor`` launch per batch step of the pack (fewer than the two
+    solo runs' sum), and ``ok`` equal to the CPU's solo runs."""
+    from pycatkin_tpu_torch.models.synthetic import synthetic_spec
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import ode
+
+    grid = np.concatenate([[0.0], np.logspace(-9, -2, 9)])
+    tenants = []
+    for seed in (1, 4):
+        spec, base = synthetic_spec(12, 14, seed=seed)
+        tenants.append((spec, batch.broadcast_conditions(base, 4)._replace(
+            T=np.linspace(480.0, 545.0, 4) + 2.0 * seed)))
+    solo, solo_lu = [], 0
+    for spec, conds in tenants:
+        cl.reset_launches()
+        solo.append(batch.batch_transient(spec, conds, grid, abi=True,
+                                          device=device))
+        torch.cuda.synchronize()
+        solo_lu += cl.LAUNCHES["lu_factor"]
+    cl.reset_launches()
+    ode.reset_counters()
+    packed = batch.packed_batch_transient([t[0] for t in tenants],
+                                          [t[1] for t in tenants], grid,
+                                          device=device)
+    torch.cuda.synchronize()
+    assert 0 < cl.LAUNCHES["lu_factor"] <= ode.SYNCS["ode_active"]
+    assert cl.LAUNCHES["lu_factor"] < solo_lu
+    for (spec, conds), (ys_s, ok_s), (ys_p, ok_p) in zip(tenants, solo,
+                                                         packed):
+        assert ys_p.device.type == "cuda"
+        assert torch.equal(ys_s.view(torch.int64), ys_p.view(torch.int64))
+        assert torch.equal(ok_s, ok_p)
+        _, ok_c = batch.batch_transient(spec, conds, grid, abi=True,
+                                        device="cpu")
+        assert torch.equal(ok_p.cpu(), ok_c)
+
+
+def test_server_on_the_card_answers_as_solo_calls(device):
+    """The sweep server on the card, in process: two bucket-16 sweeps
+    ride one packed flush and two same-grid transients another, each
+    answer byte for byte its solo call on the card; the sweep verdicts
+    equal the CPU's; the manifest names the card and the kernel
+    library, and no flush builds it after the warm-up."""
+    import asyncio
+    import json
+
+    from pycatkin_tpu_torch.models.synthetic import \
+        synthetic_system_for_bucket
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.serve import (ServeConfig, SweepClient,
+                                          SweepServer)
+    from pycatkin_tpu_torch.serve.protocol import jsonable
+    from pycatkin_tpu_torch.serve.server import SUMMARY_KEYS
+
+    sims = [synthetic_system_for_bucket(16, seed=s) for s in (1, 4)]
+    T = [500.0, 520.0]
+    ts = [0.0, 1e-7, 1e-5, 1e-3]
+
+    async def scenario():
+        server = await SweepServer(ServeConfig()).start(listen=False)
+        try:
+            warm = await asyncio.to_thread(server.warm, sims, len(T), (2,),
+                                           ts)
+            server.mark_warm()
+            client = SweepClient(server)
+            resps = await asyncio.gather(*(
+                [client.sweep(s, T, wait_budget_s=5.0) for s in sims]
+                + [client.transient(s, T, ts, wait_budget_s=5.0)
+                   for s in sims]))
+            return warm, resps, server.stats(), server.boot_manifest
+        finally:
+            await server.drain()
+
+    warm, resps, stats, manifest = asyncio.run(scenario())
+    assert manifest["backend"]["platform"] == "gpu"
+    assert manifest["kernel_library"]
+    assert warm["compiled"] + warm["loaded"] <= 1
+    assert stats["zero_compile_rate_after_warm"] == 1.0
+    assert [r["pack"]["tenants"] for r in resps] == [2, 2, 2, 2]
+    for sim, resp in zip(sims + sims, resps):
+        conds = batch.stack_conditions([sim.conditions(T=t, p=1e5)
+                                        for t in T])
+        if "save_points" in resp:
+            ys, ok = batch.batch_transient(sim.spec, conds, ts, abi=True,
+                                           device=device)
+            want = {"ok": ok.cpu().numpy(),
+                    "endpoint": ys[:, -1, :].cpu().numpy()}
+        else:
+            out = batch.sweep_steady_state(sim.spec, conds, abi=True,
+                                           device=device)
+            want = {k: out[k].cpu().numpy() for k in SUMMARY_KEYS
+                    if k in out}
+            cpu = batch.sweep_steady_state(sim.spec, conds, abi=True,
+                                           device="cpu")
+            assert resp["result"]["success"] == cpu["success"].tolist()
+        assert json.dumps(resp["result"]) == json.dumps(jsonable(want))
