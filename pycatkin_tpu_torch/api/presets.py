@@ -14,10 +14,11 @@ gives (a column of integers as integers, a column of numbers as
 float64 in shortest round-trip form, NaN as an empty field, ``\\n`` line
 ends), so this module needs no pandas.
 
-Not ported: the JAX package's degradation ladder around the sweep's
-steady solve (``robustness/ladder.run_chunk_with_ladder``) and its event
-record. An exception from the steady solve propagates; unconverged lanes
-warn, as there.
+The sweep's steady solve runs under the degradation ladder
+(``robustness/ladder.run_chunk_with_ladder``, label ``preset:steady``)
+with the JAX package's validator: a solve that fails on every rung
+degrades to the transient finals with a ``transient-fallback``
+degradation event and a warning instead of killing the sweep.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from .. import engine
 from ..parallel.batch import (batch_steady_state, batch_transient,
                               stack_conditions)
+from ..robustness.ladder import run_chunk_with_ladder
 from ..solvers.ode import log_time_grid
 from .system import _host
 
@@ -113,16 +115,40 @@ def _sweep(sim_system, values, set_value, steady_state_solve, tof_terms,
 
     sopts = sim_system.solver_options()
     if steady_state_solve:
-        res = batch_steady_state(spec, batched,
-                                 x0=finals[:, spec.dynamic_indices],
-                                 opts=sopts, device=dev)
-        finals = res.x
-        success = _host(res.success)
-        if not bool(np.all(success)):
-            idx = np.flatnonzero(~success)
-            bad = [values[i] for i in idx]
-            print(f"Warning: steady solve unconverged for lanes "
-                  f"{idx.tolist()} (sweep values {bad})", file=sys.stderr)
+        def run_steady(device=None):
+            x0 = finals[:, spec.dynamic_indices]
+            return batch_steady_state(
+                spec, batched, x0=x0 if device is None else x0.to(device),
+                opts=sopts, device=dev if device is None else device)
+
+        def reject_poisoned(res):
+            bad = _host(res.success) & ~np.all(np.isfinite(_host(res.x)),
+                                               axis=-1)
+            return (f"{int(bad.sum())} converged lane(s) with non-finite "
+                    "state" if bad.any() else None)
+
+        res, _ = run_chunk_with_ladder(run_steady, label="preset:steady",
+                                       validate=reject_poisoned, device=dev)
+        if res is None:
+            from ..utils import profiling
+            lanes = list(range(len(values)))
+            detail = (f"steady solve failed on every degradation rung; "
+                      f"lanes {lanes} (sweep values {list(values)}) "
+                      f"degraded to transient finals")
+            profiling.record_event("degradation", label="preset:steady",
+                                   rung="transient-fallback",
+                                   detail=detail, lanes=lanes)
+            print(f"Warning: {detail} (see diagnostics events)",
+                  file=sys.stderr)
+        else:
+            finals = res.x.to(finals.device)
+            success = _host(res.success)
+            if not bool(np.all(success)):
+                idx = np.flatnonzero(~success)
+                bad = [values[i] for i in idx]
+                print(f"Warning: steady solve unconverged for lanes "
+                      f"{idx.tolist()} (sweep values {bad})",
+                      file=sys.stderr)
 
     ds = sim_system.device_spec()
     cd = engine.conditions_to(batched, dev)

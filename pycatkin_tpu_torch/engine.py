@@ -53,12 +53,15 @@ class DeviceSpec:
     marks real dynamic slots; pad slots get the decoupled residual
     ``F = -x``. A spec lowered into an ABI bucket also carries its
     padded deflation basis ``lyap_q`` (``[D, 4]``) and its validity
-    flag ``lyap_ok`` (a 0-d tensor, 1 or 0); both are None otherwise."""
+    flag ``lyap_ok`` (a 0-d tensor, 1 or 0), and ``abi_fingerprint``, its
+    bucket's fingerprint (:func:`bind` sets it); all three are None
+    otherwise."""
 
     def __init__(self, spec: ModelSpec, device, dyn_mask=None,
                  lyap_q=None, lyap_ok=None):
         import dataclasses
         self.host = spec
+        self.abi_fingerprint = None
         self.device = torch.device(device)
         for f in dataclasses.fields(spec):
             v = getattr(spec, f.name)
@@ -95,8 +98,10 @@ def bind(spec, device, dyn_mask=None) -> DeviceSpec:
     :class:`~.frontend.abi.AbiLowered` binds its padded spec with its
     ``dyn_mask``, ``lyap_q`` and ``lyap_ok``."""
     if isinstance(spec, AbiLowered):
-        return DeviceSpec(spec.spec_padded, device, dyn_mask=spec.dyn_mask,
-                          lyap_q=spec.lyap_q, lyap_ok=spec.lyap_ok)
+        ds = DeviceSpec(spec.spec_padded, device, dyn_mask=spec.dyn_mask,
+                        lyap_q=spec.lyap_q, lyap_ok=spec.lyap_ok)
+        ds.abi_fingerprint = spec.abi_fingerprint
+        return ds
     return DeviceSpec(spec, device, dyn_mask=dyn_mask)
 
 
@@ -532,6 +537,71 @@ def transient(ds: DeviceSpec, cond: Conditions, save_ts,
                                  sopts=finish_options(opts))
     ys[:, -1] = y_fin
     return ys, ok
+
+
+def _transient_materialized(n: int) -> None:
+    """Count blocking transient save-buffer pulls to the host
+    (``pycatkin_transient_materializations_total``): the chunked drive
+    pays one a chunk plus the finish."""
+    from .obs import metrics as _metrics
+    _metrics.counter(
+        "pycatkin_transient_materializations_total",
+        "blocking transient save-buffer materializations").inc(n)
+
+
+def chunked_transient_drive(step, finish, conds, y0, save_ts,
+                            opts: ODEOptions, chunk: int, batched: bool,
+                            force_chunking: bool = False):
+    """The host-driven chunking protocol of the save grid: the times
+    after ``save_ts[0]`` in blocks of ``chunk`` (the last block padded
+    with repeats of the final time, which are no-ops), each block one
+    bounded call ``step(conds, state, part) -> (state, ys_block)`` from
+    the carry ``state = ode.init_state(y0, save_ts[0], opts)`` whose
+    states are pulled to the host (one counted ``host_sync`` a block),
+    then ``finish(conds, y_last, ok) -> (y_final, ok)`` on the endpoint.
+    ``batched``: whether ``y0`` carries a leading lane axis. As in the
+    JAX package, off a TPU -- the card is not one -- the grid runs as
+    one block unless ``force_chunking``. Returns ``(ys, ok)`` on ``y0``'s
+    device, bit for bit :func:`transient`'s on the same closures."""
+    from .utils.profiling import host_sync
+    save_ts = np.asarray(save_ts, dtype=np.float64).ravel()
+    if not force_chunking:
+        chunk = max(chunk, len(save_ts))
+    y0 = y0 if batched else y0[None]
+    state = ode.init_state(y0, save_ts[0], opts)
+    blocks = [host_sync(y0, "transient y0")[:, None, :]]
+    ts = save_ts[1:]
+    for i in range(0, len(ts), chunk):
+        part = ts[i:i + chunk]
+        npad = chunk - len(part)
+        if npad:
+            part = np.concatenate([part, np.full(npad, ts[-1])])
+        state, ys_chunk = step(conds, state, part)
+        ys_np = host_sync(ys_chunk, f"transient chunk[{i // chunk}]")
+        _transient_materialized(1)
+        blocks.append(ys_np[:, :chunk - npad] if npad else ys_np)
+    ys = np.concatenate(blocks, axis=1)
+    y_fin, ok = finish(conds, torch.as_tensor(ys[:, -1], device=y0.device),
+                       state[3])
+    ys[:, -1] = host_sync(y_fin, "transient finish")
+    _transient_materialized(1)
+    ys = torch.as_tensor(ys, device=y0.device)
+    return (ys, ok) if batched else (ys[0], ok[0])
+
+
+def transient_chunked(ds: DeviceSpec, cond: Conditions, save_ts,
+                      opts: ODEOptions = ODEOptions(), chunk: int = 16,
+                      force_chunking: bool = False):
+    """The host-driven transient of every lane (see
+    :func:`chunked_transient_drive`): the integration and the Newton
+    finish of :func:`transient`, bit for bit. Returns ``(ys [L, t, n_s],
+    ok [L])``; the JAX package's single-lane form is a batch of one."""
+    return chunked_transient_drive(
+        lambda c, st, part: transient_state(ds, c, st, part, opts),
+        lambda c, y, ok: transient_finish(ds, c, y, ok,
+                                          sopts=finish_options(opts)),
+        cond, cond.y0.contiguous(), save_ts, opts, chunk, batched=True,
+        force_chunking=force_chunking)
 
 
 def tof(ds: DeviceSpec, cond: Conditions, y, tof_mask):

@@ -23,10 +23,10 @@ checks device, dtype, shape and contiguity, then sends a CPU tensor to
 the plain version (``*_ref``, the same arithmetic in plain PyTorch, in
 the tensor's type) and a CUDA tensor to the kernel (``pk_*`` in float64,
 ``pk_*_f32`` in float32: one templated source). A CUDA tensor is
-never served by the plain version: a kernel that cannot launch raises.
-Each launch adds one to :data:`LAUNCHES` (float64) or
-:data:`LAUNCHES_F32` (float32), and to :data:`LAUNCHES_BY_SHAPE` under
-its size and lane count.
+never served by the plain version: a kernel that cannot be built, loaded
+or launched raises :class:`KernelError`. Each launch adds one to
+:data:`LAUNCHES` (float64) or :data:`LAUNCHES_F32` (float32), and to
+:data:`LAUNCHES_BY_SHAPE` under its size and lane count.
 
 The kernels serve every n (``csrc/linalg.cu``). At n = 16 and 32 all
 three take the warp tier: a half-warp or warp per lane with rows in
@@ -88,6 +88,11 @@ _LIB_LOCK = threading.Lock()
 _SUFFIX = {torch.float64: "", torch.float32: "_f32"}
 
 
+class KernelError(RuntimeError):
+    """The kernel library failed to build or load, or a kernel failed to
+    launch: a fault of the card or of the program, never of the data."""
+
+
 def reset_launches() -> None:
     """Set every launch counter to 0."""
     for counter in (LAUNCHES, LAUNCHES_F32):
@@ -111,8 +116,8 @@ def _nvcc() -> str:
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
-                       "kernels are built from source on first use")
+    raise KernelError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                      "kernels are built from source on first use")
 
 
 def library_path() -> Path:
@@ -137,8 +142,8 @@ def build(verbose: bool = False) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n"
+                          f"{proc.stdout}\n{proc.stderr}")
     if verbose:
         print(proc.stderr.strip())
     os.replace(tmp, so)
@@ -157,7 +162,11 @@ def _lib():
         if _LIB is not None:
             return _LIB
         built = not library_path().exists()
-        lib = ctypes.CDLL(str(build()))
+        try:
+            lib = ctypes.CDLL(str(build()))
+        except OSError as exc:
+            raise KernelError(f"the kernel library does not load: "
+                              f"{exc}") from exc
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for sfx in _SUFFIX.values():
             fac = getattr(lib, "pk_lu_factor" + sfx)
@@ -234,8 +243,8 @@ def _stream(t):
 
 def _raise_on(name, err):
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError {err}")
+        raise KernelError(f"{name}: CUDA kernel launch failed with "
+                          f"cudaError {err}")
 
 
 # ----------------------------------------------------------------------

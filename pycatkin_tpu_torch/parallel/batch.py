@@ -33,10 +33,26 @@ and so is :func:`batch_transient`, the lane-batched transient
 (``engine.transient``) with its diagnostics bundle;
 :func:`packed_batch_transient` integrates K mechanisms of one ABI bucket
 as one lane batch, each tenant's answer its solo transient's.
+
+The sweep tail carries the JAX package's hooks: every device stage runs
+inside :func:`..utils.retry.call_with_backend_retry` under the JAX
+package's label (``batched steady solve``, ``sweep tail``,
+``rescue[<strategy>]``, ``neighbor-seed transfer``, ``stability
+screen``, ``stability tier-2 jacobian``, ``tof/activity``, ``batched
+transient sweep``), which is also the fault-injection site of that
+stage; each rescue pass records a ``rescue`` event and the
+``pycatkin_rescue_lanes_total`` / ``pycatkin_rescued_lanes_total``
+counters, quarantined lanes go through ``ladder.record_quarantine``, and
+every sweep counts ``pycatkin_lanes_solved_total`` and feeds the
+per-lane histograms. Under an active fault plan the sweep takes the
+split route (the first pass, then :func:`_finish_sweep`), as the JAX
+package does, so a ``nan`` fault on the first pass's output meets the
+quarantine; the two routes give the same bits.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Optional
 
@@ -45,6 +61,10 @@ import torch
 
 from .. import engine, precision
 from ..frontend import abi as _abi
+from ..obs import metrics as _metrics
+from ..robustness import faults
+from ..utils.profiling import host_sync, record_event, span
+from ..utils.retry import call_with_backend_retry
 from ..frontend.spec import Conditions, ModelSpec
 from ..ops import prng
 from ..solvers import ode
@@ -59,6 +79,29 @@ from ..solvers.newton import (LYAPUNOV_MAX_DIM, STRATEGY_CODES,
                               packed_sweep_diagnostics,
                               stability_tolerance,
                               stability_tolerance_from_scale)
+
+
+_LANE_COUNT_BUCKETS = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0,
+                       500.0, 1000.0)
+_LANE_DECADE_BUCKETS = (-16.0, -14.0, -12.0, -10.0, -8.0, -6.0, -4.0,
+                        -2.0, 0.0)
+
+
+def _note_lane_telemetry(tel: np.ndarray, ds: engine.DeviceSpec) -> None:
+    """Feed one sweep's ``[lanes, 5]`` telemetry (host) into the per-lane
+    histograms, labelled by the ABI bucket the sweep ran in
+    (``unbucketed`` for an unpadded mechanism)."""
+    bucket = str(ds.abi_fingerprint or "unbucketed")
+    for name, help_text, col, buckets in (
+            ("pycatkin_lane_iterations", "per-lane solver iteration counts",
+             0, _LANE_COUNT_BUCKETS),
+            ("pycatkin_lane_chords", "per-lane accepted chord re-solves",
+             1, _LANE_COUNT_BUCKETS),
+            ("pycatkin_lane_residual_decade",
+             "per-lane final-residual decade (floor log10)", 2,
+             _LANE_DECADE_BUCKETS)):
+        _metrics.histogram(name, help_text, buckets=buckets).observe_many(
+            tel[:, col], abi_bucket=bucket)
 
 
 def fast_pass_opts(opts: SolverOptions) -> SolverOptions:
@@ -224,7 +267,10 @@ def fused_sweep(spec, conds: Conditions, tof_mask=None,
         opts = fast_pass_opts(SolverOptions())
     precision.check_tier(tier)
     ds, conds, x0 = _bind(spec, conds, None, device)
-    return _fused(ds, conds, tof_mask, x0, opts, pos_tol, True, tier)
+    with span("fused sweep"):
+        return call_with_backend_retry(
+            _fused, ds, conds, tof_mask, x0, opts, pos_tol, True, tier,
+            label="batched steady solve")
 
 
 def _warn_negative_tof(neg: int) -> None:
@@ -233,7 +279,7 @@ def _warn_negative_tof(neg: int) -> None:
             f"sweep_steady_state: net TOF is negative on {neg} lane(s) "
             "(selected steps run in reverse); 'activity' reports the "
             "|TOF| activity for those lanes. Inspect out['tof'] for "
-            "signs.", stacklevel=5)
+            "signs.", stacklevel=6)
 
 
 def _assemble_clean(res, quar, stable, tofs, act, check_stability: bool,
@@ -266,9 +312,15 @@ def _stability_tier2(ds: engine.DeviceSpec, conds: Conditions, ys,
     verdicts merged into the host copy ``certified``, which is
     returned."""
     sel = torch.as_tensor(idx, device=ds.device)
-    J = engine.steady_jacobian(ds, engine.lane_subset(conds, sel),
-                               ys[sel][..., ds.dyn])
-    Js = J.cpu().numpy()
+
+    def run_jac():
+        J = engine.steady_jacobian(ds, engine.lane_subset(conds, sel),
+                                   ys[sel][..., ds.dyn])
+        return J.cpu().numpy()
+
+    with span("tier-2 jacobian"):
+        Js = call_with_backend_retry(run_jac,
+                                     label="stability tier-2 jacobian")
     eig = np.linalg.eigvals(Js)
     certified[idx] = np.all(
         eig.real <= stability_tolerance(Js, pos_tol)[..., None], axis=-1)
@@ -285,11 +337,16 @@ def _stability_mask(ds: engine.DeviceSpec, conds: Conditions, ys,
     if precomputed is not None:
         certified, ambiguous, n_amb = precomputed
     else:
-        cert, finite = stability_screen(ds, conds, ys, pos_tol)
-        good = finite & ok
-        certified = good & cert
-        ambiguous = good & ~certified
-        n_amb = int(ambiguous.sum())
+        def run_screen():
+            cert, finite = stability_screen(ds, conds, ys, pos_tol)
+            good = finite & ok
+            certified = good & cert
+            ambiguous = good & ~certified
+            return certified, ambiguous, int(ambiguous.sum())
+
+        with span("stability screen"):
+            certified, ambiguous, n_amb = call_with_backend_retry(
+                run_screen, label="stability screen")
     if n_amb:
         idx = np.flatnonzero(ambiguous.cpu().numpy())
         out = _stability_tier2(ds, conds, ys, idx,
@@ -338,9 +395,11 @@ def _neighbor_seed_lanes(conds: Conditions, success: np.ndarray):
     ok_idx = np.flatnonzero(success)
     if len(ok_idx) == 0 or len(fail_idx) == 0:
         return None
+    host_conds = call_with_backend_retry(
+        lambda: [np.asarray(a.cpu() if torch.is_tensor(a) else a)
+                 for a in conds], label="neighbor-seed transfer")
     feats = []
-    for a in conds:
-        a = np.asarray(a.cpu() if torch.is_tensor(a) else a)
+    for a in host_conds:
         if a.ndim >= 1 and a.shape[0] == n:
             f = a.reshape(n, -1).astype(np.float64)
             std = f.std(axis=0)
@@ -414,16 +473,31 @@ def _rescue(ds: engine.DeviceSpec, conds: Conditions,
             seed_lane = nn[idx]
     dev = res.x.device
     sel = torch.as_tensor(idx, device=dev)
-    keys = prng.split(prng.prng_key(seed, dev), len(idx))
-    x0 = res.x[torch.as_tensor(seed_lane, device=dev)][:, ds.dyn] \
-        if use_x0 else None
-    out = engine.steady_state(ds, engine.lane_subset(conds, sel), x0=x0,
-                              key=keys, opts=opts, strategy=strategy)
-    got_d = out.success
-    got = got_d.cpu().numpy()
+
+    def run_rescue():
+        keys = prng.split(prng.prng_key(seed, dev), len(idx))
+        x0 = res.x[torch.as_tensor(seed_lane, device=dev)][:, ds.dyn] \
+            if use_x0 else None
+        o = engine.steady_state(ds, engine.lane_subset(conds, sel), x0=x0,
+                                key=keys, opts=opts, strategy=strategy)
+        return o, o.success.cpu().numpy()
+
+    label = f"rescue[{strategy}]"
+    with span(label):
+        out, got = call_with_backend_retry(run_rescue, label=label)
     n_remaining = int(n_failed - got.sum())
+    record_event("rescue", label=label, n_failed=int(n_failed),
+                 n_remaining=n_remaining)
+    _metrics.counter("pycatkin_rescue_lanes_total",
+                     "failed lanes entering each rescue strategy").inc(
+                         int(n_failed), strategy=str(strategy))
+    _metrics.counter("pycatkin_rescued_lanes_total",
+                     "lanes recovered per rescue strategy").inc(
+                         int(n_failed) - n_remaining,
+                         strategy=str(strategy))
     if not got.any():
         return res, n_remaining
+    got_d = out.success
     won = sel[got_d]
     fields = {}
     for name in ("x", "residual", "rate_ok", "pos_ok", "sums_ok",
@@ -448,7 +522,7 @@ def _host_lane_telemetry(res: SteadyStateResults, quar, strategy_codes,
     quarantined lane); the tier column holds ``first_pass_tier``, the
     first pass's tier code, on the lanes that pass accepted (converged,
     strategy 0) and 0 on every other (the ladder is float64). Returned
-    on the device of ``res``."""
+    on the host."""
     it = res.iterations.cpu().numpy().astype(np.int32)
     ch = res.chords.cpu().numpy().astype(np.int32)
     r = res.residual.cpu().numpy().astype(np.float64)
@@ -464,8 +538,7 @@ def _host_lane_telemetry(res: SteadyStateResults, quar, strategy_codes,
     ok = res.success.cpu().numpy().astype(bool)
     tcol = np.where(ok & (strat == 0), np.int32(first_pass_tier),
                     np.int32(0)).astype(np.int32)
-    return torch.as_tensor(np.stack([it, ch, dec, strat, tcol], axis=-1),
-                           device=res.x.device)
+    return np.stack([it, ch, dec, strat, tcol], axis=-1)
 
 
 def _tof_activity(ds: engine.DeviceSpec, conds: Conditions, ys, tof_mask,
@@ -498,18 +571,24 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
     accepted. Returns the result dict."""
     has_tof = tof_mask is not None
     res, quar = _quarantine_mask(res)
-    nf = int((~res.success).sum())
-    cert = amb = None
-    n_amb = n_dem = 0
-    if check_stability:
-        if screen is None:
-            c, finite = stability_screen(ds, conds, res.x, pos_tol)
-            good = finite & res.success
-            screen = (good & c, good & ~c)
-        cert, amb = screen
-        n_amb = int(amb.sum())
-        n_dem = int((res.success & ~cert).sum())
-    if nf == 0 and (not check_stability or (n_amb == 0 and n_dem == 0)):
+
+    def run_tail():
+        # The counts, and on a clean sweep its TOF and telemetry, in one
+        # retried unit (the JAX package's speculative tail).
+        nf = int((~res.success).sum())
+        cert = amb = None
+        n_amb = n_dem = 0
+        if check_stability:
+            if screen is None:
+                c, finite = stability_screen(ds, conds, res.x, pos_tol)
+                good = finite & res.success
+                cert, amb = good & c, good & ~c
+            else:
+                cert, amb = screen
+            n_amb = int(amb.sum())
+            n_dem = int((res.success & ~cert).sum())
+        if nf or (check_stability and (n_amb or n_dem)):
+            return nf, cert, amb, n_amb, None
         tofs = act = None
         n_neg = 0
         if has_tof:
@@ -519,6 +598,15 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
         tel = packed_lane_telemetry(res.iterations, res.chords,
                                     res.residual,
                                     tier=_tier_column(res.success, tier))
+        return nf, cert, amb, n_amb, (tofs, act, n_neg, tel,
+                                      host_sync(tel, "sweep tail bundle"))
+
+    with span("sweep tail"):
+        nf, cert, amb, n_amb, clean = call_with_backend_retry(
+            run_tail, label="sweep tail")
+    if clean is not None:
+        tofs, act, n_neg, tel, tel_h = clean
+        _note_lane_telemetry(tel_h, ds)
         return _assemble_clean(res, quar, cert, tofs, act, check_stability,
                                has_tof, n_neg, tel)
 
@@ -537,6 +625,10 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
                           codes=strat, code=STRATEGY_CODES["lm"])
     if nf0 > 0:
         res, quar = _quarantine_mask(res, quar)
+    q_lanes = np.flatnonzero(quar.cpu().numpy())
+    if q_lanes.size:
+        from ..robustness.ladder import record_quarantine
+        record_quarantine(q_lanes.tolist(), label="quarantine:sweep")
     stable = None
     if check_stability:
         pre = (cert, amb, n_amb) if nf0 == 0 else None
@@ -557,26 +649,38 @@ def _finish_sweep(ds: engine.DeviceSpec, conds: Conditions,
         v = getattr(res, name, None)
         if v is not None:
             out[name] = v
-    out["lane_telemetry"] = _host_lane_telemetry(
-        res, quar, strat, precision.TIER_CODES[tier])
+    tel = _host_lane_telemetry(res, quar, strat, precision.TIER_CODES[tier])
+    out["lane_telemetry"] = torch.as_tensor(tel, device=res.x.device)
+    _note_lane_telemetry(tel, ds)
     if check_stability:
         out["stable"] = stable
         out["success"] = res.success & stable
     if has_tof:
-        out["tof"], out["activity"], n_neg = _tof_activity(
-            ds, conds, res.x, tof_mask, out["success"])
+        with span("tof/activity"):
+            out["tof"], out["activity"], n_neg = call_with_backend_retry(
+                _tof_activity, ds, conds, res.x, tof_mask, out["success"],
+                label="tof/activity")
         _warn_negative_tof(n_neg)
     return out
 
 
+def _pull_bundles(outs, label: str):
+    """The lane telemetry and diagnostics bundle of each fused output in
+    ``outs``, moved to the host in one counted sync (one
+    ``newton.SYNCS["sweep_bundle"]``). Returns ``[(tel, counts)]``."""
+    newton.SYNCS["sweep_bundle"] += 1
+    got = host_sync([(o[-2], o[-1]) for o in outs], label)
+    return [(tel, bundle.tolist()) for tel, bundle in got]
+
+
 def _decide(ds, conds, outs, opts: SolverOptions, tof_mask,
-            check_stability: bool, pos_tol: float, tier: str = "f64",
-            counts=None) -> dict:
-    """The JAX package's ``_fused_decide`` on the fused outputs: one
-    host sync of the bundle (``counts``: its values, already pulled)
-    decides between the clean assembly, the tier-2-only escalation and
-    the rescue tail (:func:`_finish_sweep`, from the raw fast-pass
-    result)."""
+            check_stability: bool, pos_tol: float, tier: str,
+            tel_host: np.ndarray, counts) -> dict:
+    """The JAX package's ``_fused_decide`` on the fused outputs: the
+    bundle's values ``counts`` (and the lane telemetry ``tel_host``,
+    pulled with it: :func:`_pull_bundles`) decide between the clean
+    assembly, the tier-2-only escalation and the rescue tail
+    (:func:`_finish_sweep`, from the raw fast-pass result)."""
     has_tof = tof_mask is not None
     res, quar = outs[0], outs[1]
     pos = 2
@@ -587,13 +691,16 @@ def _decide(ds, conds, outs, opts: SolverOptions, tof_mask,
     tofs = act = neg = None
     if has_tof:
         tofs, act, neg = outs[pos:pos + 3]
-    lane_tel, bundle = outs[-2], outs[-1]
-    if counts is None:
-        newton.SYNCS["sweep_bundle"] += 1
-        counts = bundle.cpu().tolist()
+    lane_tel = outs[-2]
     nf, nq, n_amb, n_dem, n_neg = (int(c) for c in counts)
+    if check_stability and n_amb > 0:
+        _metrics.counter(
+            "pycatkin_tier2_escalations_total",
+            "tier-0 certificate abstentions escalated to the tier-2 "
+            "eigensolve").inc(n_amb)
 
     if nf == 0 and (not check_stability or (n_amb == 0 and n_dem == 0)):
+        _note_lane_telemetry(tel_host, ds)
         return _assemble_clean(res, quar, cert, tofs, act,
                                check_stability, has_tof, n_neg, lane_tel)
     if nf == 0 and check_stability and n_amb > 0 and n_dem == n_amb:
@@ -603,6 +710,7 @@ def _decide(ds, conds, outs, opts: SolverOptions, tof_mask,
         if stable_h[idx].all():
             n_neg2 = int(neg.sum()) if has_tof else 0
             stable = torch.as_tensor(stable_h, device=res.x.device)
+            _note_lane_telemetry(tel_host, ds)
             return _assemble_clean(res, quar, stable, tofs, act,
                                    check_stability, has_tof, n_neg2,
                                    lane_tel)
@@ -657,16 +765,54 @@ def sweep_steady_state(spec: ModelSpec, conds: Conditions, tof_mask=None,
     low = spec if isinstance(spec, _abi.AbiLowered) else \
         _abi.maybe_lower(spec) if abi else None
     if low is not None:
+        _metrics.counter(
+            "pycatkin_abi_bucket_sweeps_total",
+            "sweeps dispatched per ABI shape bucket").inc(
+                bucket=low.abi_fingerprint)
         spec, conds = low, low.pad_conditions(conds)
         tof_mask, x0 = low.pad_tof_mask(tof_mask), low.pad_x0(x0)
     ds, conds, x0 = _bind(spec, conds, x0, device)
-    outs = _fused(ds, conds, tof_mask, x0, fast_pass_opts(opts),
-                  pos_jac_tol, check_stability, tier)
-    out = _decide(ds, conds, outs, opts, tof_mask, check_stability,
-                  pos_jac_tol, tier)
+    _metrics.counter("pycatkin_lanes_solved_total",
+                     "lanes entering sweep_steady_state").inc(len(conds.T))
+    t0 = time.perf_counter()
+    try:
+        out = _sweep_tail(ds, conds, tof_mask, x0, opts, check_stability,
+                          pos_jac_tol, tier)
+    finally:
+        _metrics.histogram(
+            "pycatkin_sweep_wall_seconds",
+            "sweep_steady_state wall time").observe(
+                time.perf_counter() - t0)
     if low is not None:
         out["y"] = low.unpad_y(out["y"])
     return out
+
+
+def _sweep_tail(ds, conds, tof_mask, x0, opts: SolverOptions,
+                check_stability: bool, pos_tol: float, tier: str) -> dict:
+    """:func:`sweep_steady_state` on a bound spec: the fused pass and its
+    bundle in one retried unit, then :func:`_decide`; under an active
+    fault plan the first pass alone (a ``nan`` fault poisons its
+    output), then :func:`_finish_sweep`."""
+    fast = fast_pass_opts(opts)
+    if faults.active_plan() is not None:
+        with span("solve dispatch"):
+            res = call_with_backend_retry(
+                engine.steady_state, ds, conds, x0=x0, opts=fast, tier=tier,
+                label="batched steady solve")
+        return _finish_sweep(ds, conds, res, opts, tof_mask,
+                             check_stability, pos_tol, tier=tier)
+
+    def run_fused():
+        outs = _fused(ds, conds, tof_mask, x0, fast, pos_tol,
+                      check_stability, tier)
+        return outs, _pull_bundles([outs], "fused tail bundle")[0]
+
+    with span("fused sweep"):
+        outs, (tel, counts) = call_with_backend_retry(
+            run_fused, label="batched steady solve")
+    return _decide(ds, conds, outs, opts, tof_mask, check_stability,
+                   pos_tol, tier, tel, counts)
 
 
 def _lane_closures(fns):
@@ -740,11 +886,11 @@ def _packed_fused(dss, conds, masks, x0s, opts: SolverOptions,
     res = _packed_fast_pass(dss, conds, x0s, fast_pass_opts(opts), tier)
     outs = [_fused_tail(ds, c, r, m, pos_tol, check_stability, tier)
             for ds, c, r, m in zip(dss, conds, res, masks)]
-    newton.SYNCS["sweep_bundle"] += 1
-    counts = torch.stack([o[-1] for o in outs]).cpu().tolist()
+    pulled = _pull_bundles(outs, "packed fused bundle")
     return [_decide(ds, c, o, opts, m, check_stability, pos_tol, tier,
-                    counts=n)
-            for ds, c, o, m, n in zip(dss, conds, outs, masks, counts)]
+                    tel, n)
+            for ds, c, o, m, (tel, n) in zip(dss, conds, outs, masks,
+                                              pulled)]
 
 
 def packed_sweep_steady_state(specs, conds, tof_mask=None, x0=None,
@@ -881,9 +1027,10 @@ def continuation_sweep(spec: ModelSpec, conds: Conditions, order,
     for s in range(n_stages):
         sub = engine.lane_subset(conds, order[s])
         x0 = None if s == 0 else stages[-1].x[:, ds.dyn]
-        stages.append(engine.steady_state(
-            ds, sub, x0=x0, key=keys[s * m:(s + 1) * m],
-            opts=first if s == 0 else cont))
+        stages.append(call_with_backend_retry(
+            engine.steady_state, ds, sub, x0=x0, key=keys[s * m:(s + 1) * m],
+            opts=first if s == 0 else cont,
+            label=f"continuation stage {s}"))
     inv = torch.as_tensor(np.argsort(order.ravel()), device=ds.device)
     res = SteadyStateResults(*(torch.cat(leaves)[inv]
                                for leaves in zip(*stages)))
@@ -897,7 +1044,8 @@ def continuation_sweep(spec: ModelSpec, conds: Conditions, order,
 def batch_transient(spec: ModelSpec, conds: Conditions, save_ts,
                     opts: ODEOptions = ODEOptions(), mesh=None,
                     chunk: int = 8, abi: bool = False, device=None,
-                    diagnostics: Optional[dict] = None):
+                    diagnostics: Optional[dict] = None, fused: bool = True,
+                    force_chunking: bool = False):
     """Integrate every lane's transient over the save grid ``save_ts``
     (``save_ts[0]`` the initial time) and finish it by Newton, as the
     JAX package's fused transient does. Returns ``(ys [lanes, t, n_s],
@@ -906,29 +1054,57 @@ def batch_transient(spec: ModelSpec, conds: Conditions, save_ts,
     Given a dict ``diagnostics``, fills it with the sweep's diagnostics
     bundle (``packed_sweep_diagnostics``), pulled by one sync:
     ``failed``, the lanes not ``ok`` or with a non-finite last point,
-    and ``quarantined``, the lanes with a non-finite last point (the
-    JAX package reports that count as a degradation event; the port has
-    no event sink yet).
+    and ``quarantined``, the lanes with a non-finite last point. A
+    quarantined count above 0 records a ``transient:nonfinite``
+    degradation event, as the JAX package does; on the fused route, which
+    keeps ``ys`` on the device, the count is taken only when
+    ``diagnostics`` asks for the bundle.
+
+    Routes, as in the JAX package: the fused route integrates the whole
+    save grid in one call (``engine.transient``, retried under the label
+    ``batched transient sweep``); with ``fused=False`` (the JAX
+    package's ``PYCATKIN_FUSED_TRANSIENT=0``) or under an active fault
+    plan the chunked route drives the grid from the host in blocks of
+    ``chunk`` save times (``engine.chunked_transient_drive``: one
+    counted pull of each block's states), which off a TPU is one block
+    unless ``force_chunking``. Both routes give the same ``ys`` and
+    ``ok`` bit for bit.
 
     ``abi=True`` lowers the mechanism into its ABI bucket first (the
     JAX package's ``PYCATKIN_ABI=1``), runs the padded system, whose
     stage matrices are then of the bucket's size S, and strips the pad
-    species from ``ys``. ``chunk`` has no effect, as on the JAX
-    package's default (fused) route; ``mesh`` must be None.
-    ``device=None`` runs on the CUDA card; pass ``"cpu"`` for the
-    CPU."""
+    species from ``ys``. ``mesh`` must be None. ``device=None`` runs on
+    the CUDA card; pass ``"cpu"`` for the CPU."""
     _no_mesh("batch_transient", mesh)
     low = _abi.maybe_lower(spec) if abi else None
     if low is not None:
         spec, conds = low, low.pad_conditions(conds)
     ds, conds, _ = _bind(spec, conds, None, device)
-    ys, ok = engine.transient(ds, conds, save_ts, opts)
+    n_quar = None
+    if fused and faults.active_plan() is None:
+        with span("fused transient sweep", lanes=len(conds.T),
+                  save_pts=len(save_ts)):
+            ys, ok = call_with_backend_retry(
+                engine.transient, ds, conds, save_ts, opts,
+                label="batched transient sweep")
+    else:
+        with span("chunked transient sweep", lanes=len(conds.T),
+                  save_pts=len(save_ts)):
+            ys, ok = engine.transient_chunked(
+                ds, conds, save_ts, opts, chunk=chunk,
+                force_chunking=force_chunking)
+        if diagnostics is None:
+            n_quar = int((~torch.isfinite(ys[:, -1, :]).all(dim=-1)).sum())
     if diagnostics is not None:
         finite = torch.all(torch.isfinite(ys[:, -1, :]), dim=-1)
         bundle = packed_sweep_diagnostics(ok & finite, ~finite)
         ode.SYNCS["transient_bundle"] += 1
-        failed, quarantined = bundle[:2].tolist()
-        diagnostics.update(failed=failed, quarantined=quarantined)
+        failed, n_quar = bundle[:2].tolist()
+        diagnostics.update(failed=failed, quarantined=n_quar)
+    if n_quar:
+        record_event("degradation", label="transient:nonfinite",
+                     detail="transient lanes with non-finite endpoints",
+                     lanes=n_quar)
     if low is not None:
         ys = low.unpad_y(ys)
     return ys, ok
@@ -996,13 +1172,10 @@ def packed_batch_transient(specs, conds, save_ts,
     One tenant runs its solo transient; a mechanism that fits no bucket
     sends every tenant to its solo transient (with a ``degradation``
     event); tenants of different buckets raise
-    :class:`~..frontend.abi.AbiBucketError`. ``chunk`` has no effect
-    (as for :func:`batch_transient`). ``device=None`` runs on the CUDA
+    :class:`~..frontend.abi.AbiBucketError`. ``chunk`` is passed to the
+    solo transients (:func:`batch_transient`); the pack takes the fused
+    route. ``device=None`` runs on the CUDA
     card; pass ``"cpu"`` for the CPU."""
-    from ..obs import metrics as _metrics
-    from ..utils.profiling import host_sync, record_event, span
-    from ..utils.retry import call_with_backend_retry
-
     specs = list(specs)
     k = len(specs)
     if k == 0:

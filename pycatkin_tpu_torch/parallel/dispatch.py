@@ -1,23 +1,36 @@
-"""The request coalescer and the packed front door of the sweep service
-(port of the in-process parts of ``pycatkin_tpu/parallel/dispatch.py``).
+"""The sweep dispatcher: worker processes over a split lane grid, the
+elastic scheduler's front door and the request coalescer (port of
+``pycatkin_tpu/parallel/dispatch.py``).
 
-:class:`SweepCoalescer` groups pending sweep requests by ABI fingerprint,
-lane count, TOF-ness and ``x0``-ness (transients: by fingerprint, lane
-count and save grid) and flushes each group as one packed multi-tenant
-run (:func:`.batch.packed_sweep_steady_state` /
-:func:`.batch.packed_batch_transient`) on the coalescer's ``device``.
-:func:`dispatch_sweep` with ``mode="packed"`` is its one-call front door.
+:func:`dispatch_sweep` runs one sweep in one of three modes:
 
-The JAX package's ``mode="static"`` and ``mode="elastic"`` split a grid
-across worker processes and the lease-based elastic scheduler; neither
-is ported (ROADMAP.md Queue A), and both raise rather than fall back.
+- ``"static"`` (the default): the lane grid is cut into ``n_workers``
+  contiguous blocks, each solved by a fresh ``python -m
+  pycatkin_tpu_torch.parallel.dispatch <cfg>`` process (the mechanism
+  through the loader's JSON, the block through ``.npz``), and the
+  parent concatenates the blocks in lane order;
+- ``"elastic"``: the lease-based elastic scheduler
+  (:func:`..robustness.scheduler.run_elastic`);
+- ``"packed"``: the multi-tenant front door --
+  :class:`SweepCoalescer` groups pending sweep requests by ABI
+  fingerprint, lane count, TOF-ness and ``x0``-ness (transients: by
+  fingerprint, lane count and save grid) and flushes each group as one
+  packed multi-tenant run (:func:`.batch.packed_sweep_steady_state` /
+  :func:`.batch.packed_batch_transient`) on the coalescer's ``device``.
+
+Workers run on the device the caller gives (None: the CUDA card; worker
+``i`` takes card ``i`` modulo the machine's count), one CUDA context
+each; they are started with ``subprocess``, never forked.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+import json
 import os
+import subprocess
+import sys
 import threading
 import time
 from typing import Optional
@@ -400,35 +413,100 @@ def _quarantined_counts(outs) -> list:
     return counts
 
 
-def dispatch_sweep(sim, conds, *, work_dir: Optional[str] = None,
+def _split_slices(n: int, k: int):
+    """k contiguous, near-equal [start, stop) blocks covering range(n)."""
+    bounds = np.linspace(0, n, k + 1).astype(int)
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])
+            if b > a]
+
+
+def host_conditions(conds):
+    """``conds`` with every field a numpy array (tensors read on the
+    host)."""
+    return type(conds)(*(v.detach().cpu().numpy() if hasattr(v, "detach")
+                         else np.asarray(v) for v in conds))
+
+
+def dispatch_sweep(sim, conds, n_workers: Optional[int] = None,
+                   work_dir: Optional[str] = None,
                    tof_terms=None, check_stability: bool = False,
-                   mode: str = "packed", device=None,
-                   **coalescer_opts) -> list:
-    """The multi-tenant front door (the JAX package's ``dispatch_sweep``
-    in ``mode="packed"``): ``sim`` and ``conds`` are per-tenant sequences
-    (a single value is shared), the requests are coalesced by
-    :class:`SweepCoalescer` into same-bucket packs on ``device`` and each
-    pack runs as one packed sweep; returns a list of per-tenant result
-    dicts, each its tenant's solo ``sweep_steady_state(..., abi=True)``.
-    Extra keyword arguments (``max_occupancy``, ``max_wait_s``,
-    ``runner``, ``opts``, ``pos_jac_tol``) configure the coalescer; the
-    worker modes' options (``n_workers``, ``worker_env``, ``timeout``,
-    ``on_failure``, ``aot_cache``) are not taken, so passing one raises
+                   worker_env: Optional[dict] = None,
+                   timeout: Optional[float] = None,
+                   on_failure: Optional[str] = None,
+                   mode: str = "static", device=None, abi: bool = False,
+                   fault_plan=None, **elastic_opts):
+    """Run ``sweep_steady_state`` over ``conds`` (the JAX package's
+    ``dispatch_sweep``).
+
+    ``mode="static"`` (default): ``n_workers`` (default 2) independent
+    worker processes, one contiguous block of lanes each; returns the
+    merged result dict (host numpy, lane order preserved, each block
+    bit for bit an in-process sweep of that block). ``timeout`` is one
+    shared deadline for the whole sweep. ``on_failure``: ``"raise"``
+    (default; inputs and partial results stay in ``work_dir``) or
+    ``"salvage"`` (each failed or timed-out block is re-solved in the
+    parent, with a ``host-fallback`` degradation event; only a failed
+    re-solve raises). ``worker_env`` adds environment variables to the
+    workers'; ``fault_plan`` (a fault plan's JSON form) is installed in
+    every worker, whose ``dispatch:block:<i>`` site it can target.
+
+    ``mode="elastic"``: :func:`..robustness.scheduler.run_elastic`
+    (dead or stalled workers restarted, leases stolen, poison spans
+    bisected to quarantine); extra keyword arguments (``chunk``,
+    ``ttl_s``, ``max_kills``, ...) pass through, ``on_failure`` does
+    not apply. Returns the merged result dict.
+
+    ``mode="packed"``: ``sim`` and ``conds`` are per-tenant sequences (a
+    single value is shared); the requests are coalesced by
+    :class:`SweepCoalescer` into same-bucket packs on ``device`` and
+    each pack runs as one packed sweep; returns a list of per-tenant
+    result dicts, each its tenant's solo ``sweep_steady_state(...,
+    abi=True)``. Extra keyword arguments (``max_occupancy``,
+    ``max_wait_s``, ``runner``, ``opts``, ``pos_jac_tol``) configure the
+    coalescer; the worker options (``n_workers``, ``worker_env``,
+    ``timeout``, ``on_failure``) do not apply, and passing one raises
     ``TypeError``.
 
-    ``mode="static"`` (worker processes over a split grid) and
-    ``mode="elastic"`` (the lease-based elastic scheduler) raise
-    ``NotImplementedError``: they are not ported (ROADMAP.md Queue A).
-    The default is ``"packed"``, the one mode the port has."""
+    ``device`` (None: the CUDA card) and ``abi`` go to every worker's
+    sweep. The JAX package's ``aot_cache`` is not taken: the port has no
+    AOT executable cache (ROADMAP.md Queue A item 12f)."""
     if mode not in ("static", "elastic", "packed"):
         raise ValueError(f"mode must be 'static', 'elastic' or "
                          f"'packed', got {mode!r}")
-    if mode != "packed":
-        raise NotImplementedError(
-            f"dispatch_sweep(mode={mode!r}) needs worker processes"
-            f"{' and the elastic scheduler' if mode == 'elastic' else ''}"
-            f", which are not ported yet (ROADMAP.md Queue A); use "
-            f"mode='packed'")
+    if mode == "packed":
+        worker_opts = dict(n_workers=n_workers, worker_env=worker_env,
+                           timeout=timeout, on_failure=on_failure,
+                           fault_plan=fault_plan)
+        given = sorted(k for k, v in worker_opts.items() if v is not None)
+        if given:
+            raise TypeError(f"packed mode runs in-process; {given} do(es) "
+                            f"not apply")
+        return _packed_dispatch(sim, conds, work_dir, tof_terms,
+                                check_stability, device, elastic_opts)
+    n_workers = 2 if n_workers is None else int(n_workers)
+    if mode == "elastic":
+        from ..robustness.scheduler import run_elastic
+        out, _report = run_elastic(
+            sim, conds, n_workers=n_workers, work_dir=work_dir,
+            tof_terms=tof_terms, check_stability=check_stability,
+            worker_env=worker_env, timeout=timeout, device=device,
+            abi=abi, fault_plan=fault_plan, **elastic_opts)
+        return out
+    if elastic_opts:
+        raise TypeError(f"unexpected keyword argument(s) for static "
+                        f"mode: {sorted(elastic_opts)}")
+    on_failure = "raise" if on_failure is None else on_failure
+    if on_failure not in ("raise", "salvage"):
+        raise ValueError(f"on_failure must be 'raise' or 'salvage', "
+                         f"got {on_failure!r}")
+    return _static_dispatch(sim, host_conditions(conds), n_workers,
+                            work_dir, tof_terms, check_stability,
+                            worker_env, timeout, on_failure, device, abi,
+                            fault_plan)
+
+
+def _packed_dispatch(sim, conds, work_dir, tof_terms, check_stability,
+                     device, coalescer_opts) -> list:
     sims = list(sim) if isinstance(sim, (list, tuple)) else [sim]
     conds_list = (list(conds) if isinstance(conds, list)
                   else [conds] * len(sims))
@@ -447,3 +525,166 @@ def dispatch_sweep(sim, conds, *, work_dir: Optional[str] = None,
             for s, c, m in zip(sims, conds_list, masks)]
     co.flush_all()
     return [r.result() for r in reqs]
+
+
+def _static_dispatch(sim, conds, n_workers, work_dir, tof_terms,
+                     check_stability, worker_env, timeout, on_failure,
+                     device, abi, fault_plan) -> dict:
+    import tempfile
+
+    from ..robustness.scheduler import _PACKAGE_PARENT
+    from ..utils.io import save_system_json
+
+    own_dir = work_dir is None
+    if own_dir:
+        work_dir = tempfile.mkdtemp(prefix="pycatkin_dispatch_")
+    os.makedirs(work_dir, exist_ok=True)
+    model_path = os.path.join(work_dir, "model.json")
+    save_system_json(sim, model_path)
+
+    n = len(conds.T)
+    blocks = _split_slices(n, n_workers)
+    procs = []
+    for i, (a, b) in enumerate(blocks):
+        in_path = os.path.join(work_dir, f"block_{i}.npz")
+        out_path = os.path.join(work_dir, f"result_{i}.npz")
+        save_conditions(in_path, type(conds)(*(v[a:b] for v in conds)))
+        cfg = {"model": model_path, "conds": in_path, "out": out_path,
+               "block": i,
+               "tof_terms": list(tof_terms) if tof_terms else None,
+               "check_stability": bool(check_stability),
+               "device": None if device is None else str(device),
+               "abi": bool(abi), "faults": fault_plan}
+        cfg_path = os.path.join(work_dir, f"job_{i}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_PACKAGE_PARENT, env.get("PYTHONPATH")) if p)
+        if worker_env:
+            env.update({k: str(v) for k, v in worker_env.items()})
+        # Per-block stderr logs, so a failure can quote the traceback.
+        stderr_path = os.path.join(work_dir, f"worker_{i}.stderr.log")
+        with open(stderr_path, "wb") as errf:
+            procs.append((i, out_path, subprocess.Popen(
+                [sys.executable, "-m",
+                 "pycatkin_tpu_torch.parallel.dispatch", cfg_path],
+                env=env, cwd=os.getcwd(), stderr=errf)))
+
+    failed = []
+    deadline = (time.monotonic() + timeout) if timeout else None
+    try:
+        for i, out_path, p in procs:
+            try:
+                remaining = (max(0.0, deadline - time.monotonic())
+                             if deadline is not None else None)
+                rc = p.wait(timeout=remaining)
+            except subprocess.TimeoutExpired:
+                failed.append((i, None, True))
+                continue
+            if rc != 0 or not os.path.exists(out_path):
+                failed.append((i, rc, False))
+    finally:
+        # Never orphan workers: on timeout/failure/interrupt, kill
+        # whatever is still running before propagating.
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed and on_failure == "salvage":
+        # The host-fallback rung at the dispatch tier: the block inputs
+        # are still on disk, so the parent re-solves them itself.
+        from ..obs import metrics as _metrics
+        from ..utils.profiling import record_event
+        still_failed = []
+        for i, rc, timed_out in failed:
+            cfg_path = os.path.join(work_dir, f"job_{i}.json")
+            record_event("degradation", label=f"dispatch:block:{i}",
+                         rung="host-fallback",
+                         detail="worker process failed/timed out; "
+                                "re-solving block in-process")
+            _metrics.counter("pycatkin_dispatch_salvaged_blocks_total",
+                             "worker blocks re-solved in-process").inc()
+            try:
+                _worker(cfg_path, inject_faults=False)
+            except Exception as exc:  # noqa: BLE001 - reported below
+                record_event("degradation", label=f"dispatch:block:{i}",
+                             rung="abandoned",
+                             detail=f"in-process re-solve failed: {exc}")
+                _metrics.counter(
+                    "pycatkin_dispatch_abandoned_blocks_total",
+                    "worker blocks abandoned after salvage failed").inc()
+                still_failed.append((i, rc, timed_out))
+        failed = still_failed
+    if failed:
+        from ..robustness.scheduler import stderr_tail
+        from ..utils.retry import classify_worker_exit
+        details = []
+        for i, rc, timed_out in failed:
+            info = classify_worker_exit(rc, timed_out=timed_out)
+            line = f"block {i}: {info.kind} ({info.detail})"
+            tail = stderr_tail(
+                os.path.join(work_dir, f"worker_{i}.stderr.log"))
+            if tail:
+                line += "; last stderr: " + " | ".join(tail[-3:])
+            details.append(line)
+        raise RuntimeError(
+            "dispatch_sweep: worker block(s) failed or timed out -- "
+            + "; ".join(details)
+            + f"; inputs and any partial results are in {work_dir}")
+
+    from ..utils.profiling import span
+    merged: dict = {}
+    with span("dispatch merge", n_blocks=len(procs)):
+        for i, out_path, _ in procs:
+            with np.load(out_path) as z:
+                for key in z.files:
+                    merged.setdefault(key, []).append(z[key])
+        out = {k: np.concatenate(v, axis=0) for k, v in merged.items()}
+    if own_dir:
+        # Self-created scratch only; a caller's work_dir (and any
+        # failure, which raises above) is left in place.
+        import shutil
+        shutil.rmtree(work_dir, ignore_errors=True)
+    return out
+
+
+def _worker(cfg_path: str, inject_faults: bool = True) -> None:
+    """One static-mode block: load the mechanism and the block, sweep,
+    write the results. With ``inject_faults`` (a worker process) the
+    config's fault plan is installed and the ``dispatch:block:<i>`` site
+    fires first; the parent's in-process salvage passes False -- an
+    injected fault models the worker, and the salvage is another."""
+    from contextlib import nullcontext
+
+    from .. import engine
+    from ..frontend.loader import read_from_input_file
+    from ..robustness import faults
+    from ..robustness.scheduler import _worker_device
+    from ..utils.profiling import host_sync, span
+    from .batch import sweep_steady_state
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    block = cfg.get("block", 0)
+    scope = (faults.fault_scope(faults.FaultPlan.from_json(cfg.get("faults")))
+             if inject_faults else nullcontext())
+    with scope:
+        if inject_faults:
+            faults.inject(f"dispatch:block:{block}")
+        device = _worker_device(cfg.get("device"), block)
+        sim = read_from_input_file(cfg["model"], device=device)
+        conds = load_conditions(cfg["conds"])
+        mask = (engine.tof_mask_for(sim.spec, cfg["tof_terms"])
+                if cfg.get("tof_terms") else None)
+        with span("worker sweep", block=block):
+            out = sweep_steady_state(
+                sim.spec, conds, tof_mask=mask,
+                check_stability=cfg.get("check_stability", False),
+                abi=bool(cfg.get("abi", False)), device=device)
+        np.savez_compressed(cfg["out"],
+                            **host_sync(out, "worker block results"))
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1])

@@ -29,8 +29,9 @@ Faults:
   them.
 
 Activation: pass a plan to :func:`fault_scope`. The port reads no
-environment variable, so there is no plan without one (the JAX
-package's ``PYCATKIN_FAULTS`` has no counterpart); with no plan active
+environment variable, so there is no plan without one; the JSON form of
+the JAX package's ``PYCATKIN_FAULTS`` travels in a worker's config
+instead (:meth:`FaultPlan.from_json`). With no plan active
 every hook is a single ``is None`` check. A ``state_dir`` makes each
 spec's ``times`` budget hold across every process sharing that
 directory (ticket files created ``O_EXCL``).
@@ -39,6 +40,7 @@ directory (ticket files created ``O_EXCL``).
 from __future__ import annotations
 
 import fnmatch
+import json
 import os
 import threading
 import time
@@ -161,6 +163,24 @@ class FaultPlan:
         self._fired: dict[int, int] = {}
         self.log: list[dict] = []
         self._lock = threading.Lock()
+
+    @classmethod
+    def from_json(cls, data) -> "FaultPlan | None":
+        """Build a plan from its JSON form (a string, or the object it
+        parses to): a list of spec dicts, or ``{"specs": [...],
+        "state_dir": ...}`` for fleet-wide budgets -- the form the JAX
+        package reads from ``PYCATKIN_FAULTS``, which travels here in a
+        worker's config instead. None or an empty string gives None."""
+        if isinstance(data, (str, bytes)):
+            if not data.strip():
+                return None
+            data = json.loads(data)
+        if data is None:
+            return None
+        if isinstance(data, dict):
+            return cls(data.get("specs", ()),
+                       state_dir=data.get("state_dir"))
+        return cls(data)
 
     def _acquire(self, i: int, spec: FaultSpec) -> bool:
         """Consume one firing of spec ``i`` (called under the lock,

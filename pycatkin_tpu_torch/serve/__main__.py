@@ -2,12 +2,14 @@
 drained (SIGINT / SIGTERM trigger the graceful drain).
 
     python -m pycatkin_tpu_torch.serve [--host H] [--port P]
-        [--max-occupancy K] [--device cuda|cpu]
+        [--runner inproc|elastic] [--work-dir D] [--max-occupancy K]
+        [--device cuda|cpu]
 
 The bound port is printed as a JSON line on stdout so a supervisor can
 scrape it; a second JSON line with the server's stats follows the drain.
 ``--device`` defaults to the CUDA card (and the server refuses to start
-without one). ``--router`` (the JAX package's front router) is not
+without one). ``--runner elastic`` runs solo groups through the elastic
+scheduler's worker processes. ``--router`` (the JAX package's front router) is not
 ported and raises.
 """
 
@@ -24,7 +26,8 @@ async def _amain(args) -> int:
     from .protocol import ServeConfig
     from .server import SweepServer
 
-    cfg = ServeConfig(host=args.host, port=args.port,
+    cfg = ServeConfig(host=args.host, port=args.port, runner=args.runner,
+                      work_dir=args.work_dir,
                       max_occupancy=args.max_occupancy, device=args.device)
     server = await SweepServer(cfg).start()
     print(json.dumps({"serving": True, "host": cfg.host,
@@ -59,6 +62,9 @@ def main(argv=None) -> int:
     ap.add_argument("--host", default=None)
     ap.add_argument("--port", type=int, default=None,
                     help="0 binds an ephemeral port (printed)")
+    ap.add_argument("--runner", choices=("inproc", "elastic"),
+                    default=None)
+    ap.add_argument("--work-dir", default=None)
     ap.add_argument("--max-occupancy", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")

@@ -13,7 +13,8 @@ durable extension (the journal-backed router is not ported).
 
 The port reads no environment variable: :class:`ServeConfig`'s None
 fields take the JAX package's defaults (host ``127.0.0.1``, port 0,
-``max_pending`` 256, runner ``inproc``, wait budgets 0.02 / 0.2 / 2.0 s
+``max_pending`` 256, runner ``inproc`` (``"elastic"`` runs solo
+groups through the elastic scheduler's workers), wait budgets 0.02 / 0.2 / 2.0 s
 by deadline class), and ``device`` picks the card (None) or the CPU
 (``"cpu"``).
 """
@@ -82,16 +83,13 @@ class ServeConfig:
     host: Optional[str] = None
     port: Optional[int] = None
     max_pending: Optional[int] = None
-    runner: Optional[str] = None          # "inproc" (only)
+    runner: Optional[str] = None          # "inproc" | "elastic"
     aot_pack: Optional[str] = None        # not ported: must stay None
     work_dir: Optional[str] = None        # coalescer events file
     max_occupancy: Optional[int] = None   # coalescer knob passthrough
     max_wait_s: Optional[float] = None
     tick_s: float = 0.005                 # scheduler poll period
-    # The elastic runner's width: no runner of the port reads it; the
-    # field is kept so that the fields match the JAX package's
-    # ServeConfig (tests/test_torch_serve.py checks the set).
-    n_workers: int = 2
+    n_workers: int = 2                    # the elastic runner's width
     budgets: dict = field(default_factory=deadline_budgets)
     device: Optional[str] = None          # None: the CUDA card
 
@@ -107,10 +105,6 @@ class ServeConfig:
         if self.runner not in ("inproc", "elastic"):
             raise ValueError(f"runner must be 'inproc' or 'elastic', "
                              f"got {self.runner!r}")
-        if self.runner == "elastic":
-            raise ValueError("runner='elastic' needs the elastic "
-                             "scheduler, which is not ported yet "
-                             "(ROADMAP.md Queue A); use 'inproc'")
         if self.aot_pack:
             raise ValueError("aot_pack: the port compiles no programs, "
                              "and AOT cache packs are not ported "

@@ -85,6 +85,7 @@ class SweepServer:
     def __init__(self, config: Optional[ServeConfig] = None, **overrides):
         self.config = config or ServeConfig(**overrides)
         self._coalescer = None
+        self._own_work_dir = None
         self._futures: dict = {}
         self._taken = 0
         self._admitted = 0
@@ -112,9 +113,26 @@ class SweepServer:
     # -- boot ----------------------------------------------------------
 
     def _make_coalescer(self):
+        """The coalescer; with ``runner="elastic"`` its solo groups run
+        through the elastic scheduler
+        (:func:`..robustness.scheduler.packed_group_runner`), in
+        ``work_dir`` or a directory of the server's own."""
         from ..parallel.dispatch import SweepCoalescer
         cfg = self.config
-        return SweepCoalescer(autoflush=False, work_dir=cfg.work_dir,
+        work_dir = cfg.work_dir
+        runner = None
+        if cfg.runner == "elastic":
+            from ..robustness.scheduler import packed_group_runner
+            if work_dir is None:
+                import tempfile
+                self._own_work_dir = tempfile.mkdtemp(
+                    prefix="pycatkin_serve_")
+                work_dir = self._own_work_dir
+            runner = packed_group_runner(work_dir=work_dir,
+                                         n_workers=cfg.n_workers,
+                                         device=cfg.device)
+        return SweepCoalescer(runner=runner, autoflush=False,
+                              work_dir=work_dir,
                               max_occupancy=cfg.max_occupancy,
                               max_wait_s=cfg.max_wait_s, device=cfg.device,
                               to_host=True)
@@ -243,6 +261,10 @@ class SweepServer:
                 fut.set_exception(ServeError(
                     E_INTERNAL, "server stopped before flush"))
             self._futures.pop(req, None)
+        if self._own_work_dir:
+            import shutil
+            shutil.rmtree(self._own_work_dir, ignore_errors=True)
+            self._own_work_dir = None
 
     async def wait_stopped(self) -> None:
         while self._scheduler_task is not None or self._tcp_server:

@@ -16,16 +16,20 @@ inside one retried unit. Every attempt also passes through the
 fault-injection hooks (:mod:`..robustness.faults`) keyed by the call's
 ``label``.
 
-``classify_worker_exit`` waits for the elastic scheduler (ROADMAP.md
-Queue A).
+:func:`classify_worker_exit` maps a worker subprocess's exit (the
+elastic scheduler's and the static dispatcher's workers) onto the same
+taxonomy: a signal death or a timeout is preemption-shaped and safe to
+requeue; a nonzero exit status is a program error.
 """
 
 from __future__ import annotations
 
 import asyncio
 import random
+import signal
 import sys
 import time
+from dataclasses import dataclass
 
 # Exception types that are transient by construction: asyncio / socket
 # transport failures at the serve tier. The peer (or the route to it)
@@ -69,6 +73,44 @@ def backoff_delay(attempt: int, base_delay_s: float,
         rng = rng if rng is not None else _jitter_rng
         delay = rng.uniform(0.0, delay)
     return delay
+
+
+@dataclass(frozen=True)
+class WorkerExit:
+    """Classification of one worker subprocess exit into the retry
+    taxonomy: ``transient`` deaths (signal death, timeout) are
+    preemption-shaped -- re-dispatching the same block is pure, so a
+    requeue or restart is always safe; a ``nonzero-exit`` is a program
+    error (a re-run of the identical input will likely die again) and
+    only counts toward poison-chunk bisection."""
+    kind: str          # "ok" | "signal-death" | "nonzero-exit" | "timeout"
+    transient: bool
+    detail: str
+
+
+def classify_worker_exit(returncode: int | None,
+                         timed_out: bool = False) -> WorkerExit:
+    """Map a subprocess return code (``Popen.returncode`` semantics:
+    negative = killed by that signal) onto the retry taxonomy."""
+    if timed_out:
+        return WorkerExit("timeout", True,
+                          "worker exceeded its deadline (treated like "
+                          "DEADLINE_EXCEEDED: requeue-safe)")
+    if returncode is None:
+        return WorkerExit("ok", False, "worker still running")
+    if returncode == 0:
+        return WorkerExit("ok", False, "clean exit")
+    if returncode < 0:
+        try:
+            name = signal.Signals(-returncode).name
+        except ValueError:
+            name = f"signal {-returncode}"
+        return WorkerExit("signal-death", True,
+                          f"killed by {name} (preemption-shaped: "
+                          f"requeue-safe)")
+    return WorkerExit("nonzero-exit", False,
+                      f"exit status {returncode} (program error: "
+                      f"re-run of the identical block may die again)")
 
 
 def call_with_backend_retry(fn, *args, attempts: int = 3,

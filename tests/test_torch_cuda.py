@@ -754,3 +754,126 @@ def test_server_on_the_card_answers_as_solo_calls(device):
                                            device="cpu")
             assert resp["result"]["success"] == cpu["success"].tolist()
         assert json.dumps(resp["result"]) == json.dumps(jsonable(want))
+
+
+def _flagship_lanes(lanes):
+    from pycatkin_tpu_torch import engine
+    from pycatkin_tpu_torch.models.synthetic import synthetic_system
+    from pycatkin_tpu_torch.parallel import batch
+    sim = synthetic_system(24, 32, seed=0)
+    conds = batch.broadcast_conditions(sim.conditions(), lanes)._replace(
+        T=np.linspace(400.0, 800.0, lanes))
+    return sim, conds, engine.tof_mask_for(sim.spec, [sim.spec.rnames[-1]])
+
+
+def _same(a, b):
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+
+def test_chunked_sweep_on_the_card_resumes_bit_for_bit(device, tmp_path):
+    """``chip_smoke.py`` phase 17a at 4,096 lanes: no rung fires on the
+    undisturbed run, the pipelined loop equals the serial one, and a
+    resume of a faulted run (transient, permanent and NaN faults) equals
+    the undisturbed run."""
+    from pycatkin_tpu_torch.obs import metrics
+    from pycatkin_tpu_torch.robustness import (DegradationPolicy, FaultPlan,
+                                               chunked_sweep_steady_state,
+                                               fault_scope)
+    sim, conds, mask = _flagship_lanes(4096)
+    kw = dict(chunk=1024, tof_mask=mask, check_stability=True, abi=True,
+              device=device)
+    rungs = lambda: metrics.counter("pycatkin_ladder_rung_total").values()
+    r0 = rungs()
+    out1, rep1 = chunked_sweep_steady_state(
+        sim.spec, conds, journal=str(tmp_path / "j1"), **kw)
+    assert rungs() == r0 and rep1["events"] == []
+    piped, _ = chunked_sweep_steady_state(sim.spec, conds, pipeline=True,
+                                          **kw)
+    assert _same(out1, piped)
+    plan = FaultPlan([
+        {"site": "chunk:1", "kind": "transient", "times": 1},
+        {"site": "chunk:2", "kind": "permanent", "times": None},
+        {"site": "batched steady solve", "kind": "nan", "index": 2,
+         "lanes": [3, 500], "times": 1},
+        {"site": "rescue*", "kind": "nan", "times": None}])
+    policy = DegradationPolicy(host_fallback=False, base_delay_s=0.01,
+                               max_delay_s=0.05)
+    with fault_scope(plan):
+        _, rep2 = chunked_sweep_steady_state(
+            sim.spec, conds, journal=str(tmp_path / "j2"), policy=policy,
+            **kw)
+    assert rep2["salvaged"] == [2] and 3 in rep2["quarantined"]
+    out3, rep3 = chunked_sweep_steady_state(
+        sim.spec, conds, journal=str(tmp_path / "j2"), resume=True, **kw)
+    redo = set(rep2["salvaged"]) | set(rep2["quarantined"])
+    assert rep3["reused"] == sorted(set(range(4)) - redo)
+    assert _same(out3, out1)
+
+
+def test_worker_modes_on_the_card_match_in_process(device, tmp_path):
+    """``chip_smoke.py`` phase 17b at 1,024 lanes: the elastic sweep (two
+    workers on the card, one crashed) and the static one each equal the
+    in-process chunked sweep of their chunk grid on the card, bit for
+    bit."""
+    from pycatkin_tpu_torch.parallel import dispatch
+    from pycatkin_tpu_torch.robustness import (chunked_sweep_steady_state,
+                                               run_elastic)
+    sim, conds, mask = _flagship_lanes(1024)
+    terms = [sim.spec.rnames[-1]]
+    eout, erep = run_elastic(
+        sim, conds, n_workers=2, chunk=256, work_dir=str(tmp_path / "w"),
+        tof_terms=terms, check_stability=True, abi=True, ttl_s=60.0,
+        heartbeat_s=2.0, restart_base_s=0.2, restart_max_s=1.0,
+        timeout=300.0,
+        fault_plan={"specs": [{"site": "worker:0", "kind": "worker-crash",
+                               "times": 1}],
+                    "state_dir": str(tmp_path / "faults")})
+    kw = dict(tof_mask=mask, check_stability=True, abi=True, device=device)
+    ref, _ = chunked_sweep_steady_state(sim.spec, conds, chunk=256, **kw)
+    assert _same(eout, ref) and erep["restarts"] >= 1
+    sout = dispatch.dispatch_sweep(sim, conds, n_workers=2, tof_terms=terms,
+                                   check_stability=True, abi=True,
+                                   timeout=300.0)
+    ref, _ = chunked_sweep_steady_state(sim.spec, conds, chunk=512, **kw)
+    assert _same(sout, ref)
+
+
+@pytest.mark.parametrize("opt_in", [False, True])
+def test_kernel_launch_failure_in_a_chunk_propagates(device, monkeypatch,
+                                                      opt_in):
+    """A kernel launch that fails inside a chunk leaves the chunked sweep
+    as ``KernelError``: no rung re-runs the chunk on the CPU, not even
+    under a policy that opts the card run in to the host fallback."""
+    from pycatkin_tpu_torch.robustness import (DegradationPolicy,
+                                               chunked_sweep_steady_state)
+    from pycatkin_tpu_torch.utils import profiling
+    sim, conds, mask = _flagship_lanes(64)
+    cl.load()
+    monkeypatch.setattr(cl, "_entry", lambda name, dtype: (
+        lambda *args: 700))                     # cudaErrorIllegalAddress
+    policy = DegradationPolicy(host_fallback=opt_in, base_delay_s=0.01,
+                               max_delay_s=0.05)
+    profiling.drain_events()
+    with pytest.raises(cl.KernelError, match="launch failed"):
+        chunked_sweep_steady_state(sim.spec, conds, chunk=32, tof_mask=mask,
+                                   abi=True, device=device, policy=policy)
+    assert not profiling.peek_events("degradation")
+
+
+@pytest.mark.parametrize("method", ["trbdf2", "esdirk4"])
+def test_chunked_transient_on_the_card_matches_fused(device, method):
+    """``chip_smoke.py`` phase 17c at 64 lanes: the chunked route equals
+    the fused route bit for bit."""
+    from pycatkin_tpu_torch.parallel import batch
+    from pycatkin_tpu_torch.solvers import ode
+    sim, conds, _ = _flagship_lanes(64)
+    ts = [0.0, 1e-9, 1e-7, 1e-5, 1e-3, 1e-1]
+    opts = ode.ODEOptions(method=method)
+    fused = batch.batch_transient(sim.spec, conds, ts, opts=opts, abi=True,
+                                  device=device)
+    chunked = batch.batch_transient(sim.spec, conds, ts, opts=opts,
+                                    abi=True, device=device, fused=False,
+                                    chunk=2, force_chunking=True)
+    assert torch.equal(fused[0], chunked[0])
+    assert torch.equal(fused[1], chunked[1])

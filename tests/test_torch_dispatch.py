@@ -168,10 +168,30 @@ def test_conditions_round_trip(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unported_modes_raise_and_name_the_roadmap():
+def test_unported_modes_raise_and_name_the_roadmap(tmp_path):
+    """The worker modes run (static is the default, as in the JAX
+    package): each equals the in-process sweep of its lane blocks bit for
+    bit; a bogus mode still raises, and the AOT cache, which the port
+    does not have, is no keyword of either worker mode."""
+    sim = synthetic_system_for_bucket(16, seed=0, device="cpu")
+    conds = batch.broadcast_conditions(sim.conditions(), 4)._replace(
+        T=np.linspace(480.0, 520.0, 4))
+    static = dispatch.dispatch_sweep(sim, conds, device="cpu")
+    elastic = dispatch.dispatch_sweep(sim, conds, mode="elastic",
+                                      chunk=2, device="cpu", timeout=120.0)
+    halves = [batch.sweep_steady_state(
+        sim.spec, type(conds)(*(v[a:a + 2] for v in conds)), device="cpu")
+        for a in (0, 2)]
+    for out in (static, elastic):
+        assert sorted(out) == sorted(halves[0])
+        for key in out:
+            np.testing.assert_array_equal(
+                out[key], np.concatenate([h[key].numpy() for h in halves]),
+                err_msg=key)
     for mode in ("static", "elastic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            dispatch.dispatch_sweep(None, None, mode=mode)
+        with pytest.raises(TypeError, match="aot_cache"):
+            dispatch.dispatch_sweep(sim, conds, mode=mode, aot_cache="c",
+                                    device="cpu")
     with pytest.raises(ValueError):
         dispatch.dispatch_sweep(None, None, mode="bogus")
 
@@ -183,7 +203,8 @@ def test_worker_mode_options_are_refused(option):
     """The worker modes' options are not taken silently: packed mode has
     no workers, so each raises instead of being ignored."""
     with pytest.raises(TypeError):
-        dispatch.dispatch_sweep(None, None, device="cpu", **option)
+        dispatch.dispatch_sweep(None, None, mode="packed", device="cpu",
+                                **option)
 
 
 def test_packed_front_door_matches_solo_sweeps_and_logs_flushes(tmp_path):
@@ -193,7 +214,8 @@ def test_packed_front_door_matches_solo_sweeps_and_logs_flushes(tmp_path):
         T=np.linspace(480.0, 520.0, N_LANES)) for s in sims]
     terms = [sims[0].spec.rnames[-1]]
     outs = dispatch.dispatch_sweep(sims, conds, tof_terms=terms,
-                                   work_dir=str(tmp_path), device="cpu")
+                                   work_dir=str(tmp_path), mode="packed",
+                                   device="cpu")
     for sim, c, out in zip(sims, conds, outs):
         mask = engine.tof_mask_for(sim.spec, terms)
         solo = batch.sweep_steady_state(sim.spec, c, mask, abi=True,

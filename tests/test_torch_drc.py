@@ -164,3 +164,43 @@ def test_zero_tof_lane_leaves_its_neighbours():
     assert bool(torch.isfinite(xi[keep]).all())
     scale = float(alone.abs().max())
     assert float((xi[keep] - alone).abs().max()) <= 1e-12 * scale
+
+
+# The flagship lane whose FD DRC the card ends not ok (chip_smoke.py
+# phase 13c, lane 256 of 65,536 at T 400-800 K), and its converged state
+# from the card's phase-3 sweep, as float.hex.
+EDGE_LANE_X0 = (
+    "0x1.eca3f7f608f99p-19", "0x1.d2e48a7364bdep-1", "0x1.af9718b684c45p-59",
+    "0x1.3e540f5f9cfcfp-13", "0x1.59cfb4c2e4f25p-52", "0x1.439820473443dp-25",
+    "0x1.4652d78c97b59p-44", "0x1.f7e13e2940a5dp-41", "0x1.4f71bc28a24ddp-45",
+    "0x1.1d28ded09d335p-26", "0x1.aa960bb4f2fbcp-52", "0x1.ca4d008905c12p-27",
+    "0x1.a398305e9db60p-30", "0x1.68387d8ca23f1p-4", "0x1.d3c4160f5b45bp-53",
+    "0x1.2e0a3052ae036p-58", "0x1.1c506292fecd1p-51", "0x1.3f7d8da54dfe1p-43",
+    "0x1.a0691b682be52p-27", "0x1.5b8cd24176a90p-24", "0x1.f896c5f27f6d6p-59")
+
+
+@pytest.mark.slow
+def test_drc_fd_edge_lane_flips_within_one_ulp_in_the_reference():
+    """The FD DRC lane that ends not ok on the card (ROADMAP Queue C item
+    6): from the card's state the JAX package ends it not ok too, and ok
+    with kscale up by one ulp -- the verdict of this lane is not a
+    property of the port. The port on the CPU ends it ok."""
+    sysj = synthetic_system(24, 32, seed=0)
+    sj = sysj.spec
+    T = np.linspace(400.0, 800.0, 65536)[256]
+    c = jbatch.broadcast_conditions(sysj.conditions(), 1)._replace(
+        T=np.array([T]))
+    cj = type(c)(*(np.concatenate(f) for f in zip(c, _one_ulp(c)[2])))
+    x0 = np.array([float.fromhex(h) for h in EDGE_LANE_X0])
+    terms = [sj.rnames[-1]]
+    _, ok_j = jax.jit(jax.vmap(lambda c, x: jengine.drc_fd(
+        sj, c, terms, x0=x, return_success=True)))(
+            cj, np.broadcast_to(x0, (2, x0.size)))
+    assert np.asarray(ok_j).tolist() == [False, True]
+    sp = spec_from_arrays(
+        {f.name: getattr(sj, f.name) for f in dataclasses.fields(sj)})
+    ct = engine.conditions_to(conditions_from_arrays(
+        {f: np.asarray(getattr(c, f)) for f in c._fields}), "cpu")
+    _, ok = engine.drc_fd(engine.bind(sp, "cpu"), ct, terms,
+                          x0=torch.as_tensor(x0[None]))
+    assert ok.tolist() == [True]

@@ -165,9 +165,17 @@ def test_serve_config_resolves_to_the_jax_defaults(monkeypatch):
     with pytest.raises(ServeError) as exc:
         ours.wait_budget_for("realtime")
     assert exc.value.code == E_BAD_REQUEST
-    for bad in (dict(runner="elastic"), dict(aot_pack="pack.tar")):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            ServeConfig(**bad)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ServeConfig(aot_pack="pack.tar")
+    # runner="elastic" builds the scheduler's runner for the coalescer.
+    from pycatkin_tpu_torch.robustness import scheduler
+    server = SweepServer(ServeConfig(runner="elastic", device="cpu"))
+    runner = server._make_coalescer().runner
+    assert runner.__qualname__ == scheduler.packed_group_runner(
+    ).__qualname__
+    assert os.path.isdir(server._own_work_dir)
+    asyncio.run(server.stop())
+    assert server._own_work_dir is None
     with pytest.raises(ValueError):
         ServeConfig(runner="bogus")
     with pytest.raises(ValueError):
