@@ -210,7 +210,26 @@ Builds the port's CUDA kernels from ``pycatkin_tpu_torch/csrc`` and runs:
    least one restart. (c) phase 12's ESDIRK4 ``abi=True`` transient on
    the chunked route (``batch_transient(fused=False,
    force_chunking=True)``), bit for bit phase 12's fused result and with
-   its launches (kernels-line path ``transient_chunked``).
+   its launches (kernels-line path ``transient_chunked``);
+18. the fleet on the card (see :func:`fleet_phase`): the chaos drill
+   (``serve.soak.run_chaos_drill``, :data:`FLEET_DRILL`): 24 requests of
+   3 lanes at bucket 32 (4 mechanisms, ``max_occupancy`` 4) answered
+   first by an undisturbed in-process server on the card (the baseline),
+   then through the front router by three replica processes on the same
+   card (``python -m pycatkin_tpu_torch.serve --device cuda``, each
+   loading the kernel library before it serves), two of them SIGKILLed
+   mid-stream and the journal-backed router process killed too, with a
+   reset connection and a torn line at the router's dispatch sites.
+   ``check_chaos_record`` must find nothing: no request lost, every answer
+   and every journaled answer (fetched by key from the rebooted router)
+   bitwise the baseline's, a clean duplicate audit, both killed replicas
+   back at incarnation 2 or more, the router back, and no replica flush
+   that built or loaded the kernel library. Each replica counts its own
+   kernel launches since its start and reports them in its stats: every
+   replica that served must have launched kernels, and the replicas
+   together ``lu_factor`` and ``lu_solve`` at n = 16 (kernels-line path
+   ``serve_fleet``, with the replicas' counts). The phase line gives its
+   walls and the baseline's launches beside the replicas'.
 
 Every path runs with the launch counters zeroed just before it and read
 just after. It prints one line per phase, a ``{"kernels": [...]}`` JSON
@@ -219,10 +238,12 @@ line with one row per kernel per path that launches it (``path``:
 ``large``, ``large_abi``, ``transient``, ``transient_abi``,
 ``transient_esdirk4``, ``drc_large``, ``abi_flagship_f32``,
 ``large_abi_f32``, ``packed``, ``packed_f32``, ``serve``,
-``serve_transient``, ``serve_full``, ``chunked_abi`` or
-``transient_chunked``, the serve paths and ``chunked_abi`` with one row
-per kernel, n and lane count they launched at; the float32 kernels
-are named ``lu_factor_f32`` etc.), the
+``serve_transient``, ``serve_full``, ``chunked_abi``,
+``transient_chunked`` or ``serve_fleet``, the serve paths and
+``chunked_abi`` with one row per kernel, n and lane count they launched
+at; the float32 kernels are named ``lu_factor_f32`` etc.; each distinct
+kernel, n, lane count and type is checked and timed once, and every row
+at that shape carries its numbers), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA card it exits 1 and
 prints no result.
@@ -281,6 +302,14 @@ ROBUST_CHUNK = 16384
 ROBUST_NAN_LANES = (3, 4097, 12000)
 ELASTIC_LANES = 8192
 ELASTIC_CHUNK = 2048
+# Phase 18: the chaos drill's settings, the JAX package's defaults but
+# bucket 32 (bucket 16's D goes to Gauss-Jordan and reaches no kernel)
+# and the router killed too, as its command line does by default; and
+# the drill's time limit, seconds.
+FLEET_DRILL = dict(bucket=32, n_requests=24, lanes=3, mechs=4,
+                   n_replicas=3, kill=2, max_occupancy=4,
+                   router_crash=True, with_pack=True)
+FLEET_LIMIT_S = 300.0
 FLAGSHIP_LANES = 65536   # bench.py's default 256 x 256 grid
 CERT_LANES = 4096
 ABI_CERT_LANES = 65536
@@ -1877,6 +1906,75 @@ def robust_phase(spec, conds, mask, aout, esdirk, esdirk_counts,
     return by_shape, tcounts
 
 
+def fleet_phase() -> dict:
+    """Phase 18 (see the module doc): the chaos drill on the card.
+    Returns the replicas' launch counts by ``(name, n, lanes)``, summed
+    over the routable replicas' own counters (kernels-line path
+    ``serve_fleet``); a killed incarnation's launches die with it, so
+    the sum is a floor."""
+    import torch
+    from pycatkin_tpu_torch.ops import cuda_linalg as cl
+    from pycatkin_tpu_torch.serve.soak import (check_chaos_record,
+                                               run_chaos_drill)
+
+    # The replicas' CUDA contexts share the card with this process's
+    # cached blocks from the earlier phases.
+    torch.cuda.empty_cache()
+    rec, counts, syncs, wall = counted(lambda: run_chaos_drill(
+        device="cuda", time_limit_s=FLEET_LIMIT_S, **FLEET_DRILL))
+    base_shape = dict(cl.LAUNCHES_BY_SHAPE)
+    by_shape = {(name, n, lanes): c
+                for name, n, lanes, c in rec["launches"]["replicas"]}
+    per_replica = {k: sum(r[3] for r in (v or {}).get("launches") or [])
+                   for k, v in rec["replica_stats"].items()}
+    problems = check_chaos_record(rec)
+    router, durable = rec["router"], rec["durable"]
+    dups = router["duplicates"]
+    rs = rec["replica_stats"]
+    log(f"phase 18 fleet: chaos drill on the card, {rec['n_requests']} "
+        f"requests of {rec['lanes']} lanes (bucket {rec['bucket']}, "
+        f"{rec['mechs']} mechanisms, max_occupancy "
+        f"{rec['max_occupancy']}), {rec['n_replicas']} replica processes, "
+        f"{rec['kills_fired']} of {rec['kill']} replicas and "
+        f"{durable['router_kills_fired']} router killed | ok "
+        f"{rec['n_ok']} lost {router['lost']} bitwise mismatches "
+        f"{router['bitwise_mismatches']} | availability "
+        f"{router['availability']} retries {router['retries']} hedges "
+        f"{router['hedges']} failovers {router['failovers']} failover p99 "
+        f"{router['failover_p99_s']} s | duplicates suppressed "
+        f"{dups['suppressed']} identical {dups['identical']} mismatched "
+        f"{dups['mismatched']} | incarnations {rec['incarnations']}, "
+        f"router {durable['router_incarnations']} (recovery "
+        f"{durable['router_recovery_s']} s, journal replay "
+        f"{durable['journal_replay_s']} s of {durable['replay']}), "
+        f"journaled answers off the baseline "
+        f"{len(durable['result_fetch_bad'])}, duplicates served "
+        f"{durable['duplicates_served']} coalesced {durable['coalesced']}, "
+        f"client reconnects {durable['client_reconnects']} acks "
+        f"{durable['client_acks']} | replica flushes (with a kernel "
+        f"library build or load) "
+        f"{ {k: (v['flushes'], v['flushes_with_compiles']) for k, v in rs.items()} } "
+        f"| walls {rec['walls']} drill {rec['wall_s']:.1f} s, phase "
+        f"{wall:.1f} s | baseline host syncs {syncs} launches {counts} by "
+        f"(kernel, n, lanes) {sorted(base_shape.items())} | replicas' "
+        f"own launches by replica {per_replica}, summed by (kernel, n, "
+        f"lanes) {sorted(by_shape.items())}")
+    # The gate: no request lost, every answer and journaled answer bitwise
+    # the baseline's, a clean duplicate audit, both killed replicas and the
+    # router back, no replica flush that built or loaded the library; the
+    # baseline server's launches are this process's, and the fleet's work
+    # ran in the replicas: each launched kernels, and together lu_factor
+    # and lu_solve at n = 16.
+    assert not problems, f"phase 18: check_chaos_record: {problems}"
+    assert {tuple(r[:3]): r[3] for r in rec["launches"]["baseline"]} \
+        == base_shape, (rec["launches"]["baseline"], base_shape)
+    assert all(per_replica.values()), ("phase 18: a replica served with "
+                                       "no kernel launch", per_replica)
+    n16 = {name for name, n, _ in by_shape if n == 16}
+    assert {"lu_factor", "lu_solve"} <= n16, by_shape
+    return by_shape
+
+
 def start_transient_cpu_reruns():
     """Start the CPU re-runs of phase 12's paths and of phase 7's two,
     one worker process each (spawned, so they hold no CUDA context), to
@@ -2495,28 +2593,45 @@ def run_phases(pool, pending, large) -> int:
         tcounts["transient_esdirk4"][0], device)
     truns.clear()
 
+    # -- phase 18: the fleet on the card ----------------------------------
+    serve_counts["serve_fleet"] = fleet_phase()
 
     # -- phase 9, kernels line: one row per kernel per path ---------------
+    # Each distinct (kernel, n, lanes, type) is checked against its plain
+    # version and timed once; every path row at that shape shares it.
+    memo = {}
+
+    def lu_rows(n, lanes, dtype=None):
+        key = ("lu", n, lanes, dtype)
+        if key not in memo:
+            memo[key] = time_lu(cl, n, lanes, device, dtype)
+        return memo[key]
+
+    def fs_row(n, lanes, dtype=None):
+        key = ("factor_solve", n, lanes, dtype)
+        if key not in memo:
+            memo[key] = time_factor_solve(cl, n, lanes, device, dtype)
+        return memo[key]
+
     m = deflation_basis_for_spec(cspec).shape[1]
     assert m * m > linalg.UNROLL_MAX, m
-    fs16 = time_factor_solve(cl, abi.LYAP_PAD ** 2, L, device)
-    timed = [("certificate", ccounts, time_factor_solve(cl, m * m, Lc,
-                                                        device))]
+    fs16 = fs_row(abi.LYAP_PAD ** 2, L)
+    timed = [("certificate", ccounts, fs_row(m * m, Lc))]
     timed += [("abi_flagship", acounts, r)
-              for r in time_lu(cl, low.static.n_dynamic, L, device) + [fs16]]
+              for r in lu_rows(low.static.n_dynamic, L) + [fs16]]
     timed += [("abi_certificate", scounts, fs16)]
     # The rescue path's largest shapes: the fast pass and, where every
     # lane fails it, the polish rung run n = 32 on all L lanes.
     timed += [("rescue_abi", rcounts, r) for _, c, r in timed
               if c is acounts]
-    large_lu = time_lu(cl, g_dyn, Lg, device)
+    large_lu = lu_rows(g_dyn, Lg)
     timed += [("large", gcounts, r) for r in large_lu]
     timed += [("large_abi", hcounts, r)
-              for r in time_lu(cl, glow.static.n_dynamic, Lg, device)]
+              for r in lu_rows(glow.static.n_dynamic, Lg)]
     # The transient's stage matrices: n_s unpadded, S through abi=True;
     # phase 17c's chunked route at phase 12's ESDIRK4 shape.
     for path, (tc, nt, Lt) in tcounts.items():
-        rows = time_lu(cl, nt, Lt, device)
+        rows = lu_rows(nt, Lt)
         timed += [(path, tc, r) for r in rows]
         if path == "transient_esdirk4":
             timed += [("transient_chunked", chunked_tcounts, r)
@@ -2524,7 +2639,7 @@ def run_phases(pool, pending, large) -> int:
     # Phase 13b: the polish and adjoint solves at n = 165, and the steady
     # solve's LU where it stepped.
     timed += [("drc_large", cb, r)
-              for r in large_lu + [time_factor_solve(cl, g_dyn, Lg, device)]
+              for r in large_lu + [fs_row(g_dyn, Lg)]
               if cb[r["name"]] > 0]
     # Phases 14 and 15: the float32 builds at the tier's path shapes (the
     # float64 polish and certificate launch the float64 ones there too),
@@ -2535,29 +2650,25 @@ def run_phases(pool, pending, large) -> int:
                                      if c[r["name"]] > 0]
     rows_of = lambda path: [r for p_, _, r in timed if p_ == path]
     abi_rows = rows_of("abi_flagship")
-    f32_abi = time_lu(cl, low.static.n_dynamic, L, device, torch.float32)
-    f32_large = time_lu(cl, glow.static.n_dynamic, Lg, device, torch.float32)
+    f32_abi = lu_rows(low.static.n_dynamic, L, torch.float32)
+    f32_large = lu_rows(glow.static.n_dynamic, Lg, torch.float32)
     timed += on_path("abi_flagship_f32", tier_counts["abi_flagship"],
                      f32_abi + abi_rows)
     timed += on_path("large_abi_f32", tier_counts["large_abi"],
                      f32_large + rows_of("large_abi"))
-    pack_rows = abi_rows[:2] + [time_factor_solve(cl, abi.LYAP_PAD ** 2,
-                                                  PACK_LANES, device)]
+    pack_rows = abi_rows[:2] + [fs_row(abi.LYAP_PAD ** 2, PACK_LANES)]
     timed += on_path("packed", pack_counts["f64"], pack_rows)
     timed += on_path("packed_f32", pack_counts["f32-polish"],
                      f32_abi + pack_rows)
-    # Phases 16 and 17a: each serve path's and the chunked sweep's
+    # Phases 16, 17a and 18: each serve path's and the chunked sweep's
     # kernels at every (n, lanes) they launched at, each shape checked and
     # timed as it launched (the full-width sweep's n = 32 x 65,536 is
     # phase 5's).
-    shape_rows = {(low.static.n_dynamic, L): abi_rows[:2]}
-    for path in ("serve", "serve_transient", "serve_full", "chunked_abi"):
+    for path in ("serve", "serve_transient", "serve_full", "chunked_abi",
+                 "serve_fleet"):
         for (name, n, lanes), c in sorted(serve_counts[path].items()):
-            rows = shape_rows.setdefault((n, lanes), [])
-            if not any(r["name"] == name for r in rows):
-                rows += ([time_factor_solve(cl, n, lanes, device)]
-                         if name == "factor_solve"
-                         else time_lu(cl, n, lanes, device))
+            rows = ([fs_row(n, lanes)] if name == "factor_solve"
+                    else lu_rows(n, lanes))
             timed += [(path, {name: c}, r) for r in rows
                       if r["name"] == name]
     replaces = {
@@ -2591,12 +2702,10 @@ def run_phases(pool, pending, large) -> int:
     # paths' shapes (no path runs it: the certificate and DRC stay
     # float64).
     f32 = torch.float32
-    off_path = time_lu(cl, 512, 256, device) + [
-        time_factor_solve(cl, n, L_, device)
-        for n, L_ in ((256, Lg), (512, 256))]
-    off_path += time_lu(cl, 512, 256, device, f32) + [
-        time_factor_solve(cl, n, L_, device, f32)
-        for n, L_ in ((abi.LYAP_PAD ** 2, L), (m * m, Lc), (g_dyn, Lg),
+    off_path = lu_rows(512, 256) + [
+        fs_row(n, L_) for n, L_ in ((256, Lg), (512, 256))]
+    off_path += lu_rows(512, 256, f32) + [
+        fs_row(n, L_, f32) for n, L_ in ((abi.LYAP_PAD ** 2, L), (m * m, Lc), (g_dyn, Lg),
                       (256, Lg), (512, 256))]
     for r in off_path:
         log(f"timing {r['name']} (no path): n={r['n']} x {r['lanes']} "

@@ -25,7 +25,7 @@ from typing import Optional
 
 from ..utils.retry import backoff_delay
 from .protocol import (E_CONN_LOST, E_TIMEOUT, LINE_LIMIT, error_response,
-                       request_timeout_for)
+                       request_timeout_for, request_timeouts)
 
 # A connection delivering this many CONSECUTIVE undecodable lines is
 # torn, not merely glitched: fail every pending request fast instead of
@@ -126,13 +126,17 @@ class TcpSweepClient:
                  reconnect: bool = True,
                  reconnect_window_s: float = 60.0,
                  reconnect_base_delay_s: float = 0.05,
-                 reconnect_max_delay_s: float = 2.0):
+                 reconnect_max_delay_s: float = 2.0,
+                 timeouts=None):
         self.host = host
         self.port = port
         self.reconnect = reconnect
         self.reconnect_window_s = float(reconnect_window_s)
         self.reconnect_base_delay_s = float(reconnect_base_delay_s)
         self.reconnect_max_delay_s = float(reconnect_max_delay_s)
+        # Per-class request timeouts over the defaults
+        # (protocol.request_timeouts), e.g. {"interactive": 120.0}.
+        self.timeouts = request_timeouts(timeouts)
         self._reader = None
         self._writer = None
         self._pending: dict = {}     # id -> future
@@ -341,8 +345,8 @@ class TcpSweepClient:
         ``id``) arrives, regardless of interleaving.
 
         Every request carries a deadline: ``timeout`` defaults to the
-        payload's deadline-class request timeout
-        (:func:`protocol.request_timeout_for`), so a stalled -- not
+        payload's deadline-class request timeout (the client's
+        ``timeouts``, :func:`protocol.request_timeout_for`), so a stalled -- not
         closed -- server resolves to a structured ``E_TIMEOUT`` error
         instead of hanging the caller forever. Pass ``timeout=None``
         to wait indefinitely, or a float to override."""
@@ -350,7 +354,7 @@ class TcpSweepClient:
             payload = dict(payload, id=f"t{next(self._seq)}")
         if timeout is _UNSET:
             timeout = request_timeout_for(
-                payload.get("deadline_class", "standard"))
+                payload.get("deadline_class", "standard"), self.timeouts)
         req_id = payload["id"]
         fut = asyncio.get_running_loop().create_future()
         self._pending[req_id] = fut

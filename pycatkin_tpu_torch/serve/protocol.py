@@ -2,21 +2,32 @@
 ``pycatkin_tpu/serve/protocol.py``; protocol ``pycatkin-serve/v1``).
 
 One JSON object per line, both directions. Requests carry ``op``
-(``"sweep"`` | ``"transient"`` | ``"ping"`` | ``"stats"`` | ``"drain"``)
-and, for sweeps, a mechanism in the reference input-file schema
+(``"sweep"`` | ``"transient"`` | ``"ping"`` | ``"stats"`` | ``"drain"``
+| ``"result"``) and, for sweeps, a mechanism in the reference input-file schema
 (:func:`..utils.io.system_to_dict`), a conditions grid and a deadline
 class; transients add a save grid. Responses echo the request ``id`` and
 either ``ok: true`` with the result payload or ``ok: false`` with a
 structured error -- admission control rejects are data, not dropped
-connections. The parsers accept the optional ``idempotency_key`` of the
-durable extension (the journal-backed router is not ported).
+connections.
+
+Durable extension: a sweep may carry an optional client-chosen
+``idempotency_key``. Against a journal-backed router
+(:mod:`.router`, :mod:`.durable`) the client then receives an
+out-of-band ``{"accepted": true, "key": ...}`` ack line once the request
+is fsynced to the write-ahead journal, and a ``result`` op
+(``{"op": "result", "key": ...}``) fetches the journaled answer for a
+key. Keyless requests are byte-identical to the pre-durability protocol.
 
 The port reads no environment variable: :class:`ServeConfig`'s None
 fields take the JAX package's defaults (host ``127.0.0.1``, port 0,
 ``max_pending`` 256, runner ``inproc`` (``"elastic"`` runs solo
 groups through the elastic scheduler's workers), wait budgets 0.02 / 0.2 / 2.0 s
 by deadline class), and ``device`` picks the card (None) or the CPU
-(``"cpu"``).
+(``"cpu"``). The per-class request timeouts are a mapping that the front
+router (``RouterConfig.timeouts``) and the TCP client (``timeouts=``)
+take, and the journal's segment size and replay concurrency are
+``RouterConfig`` fields; ``python -m pycatkin_tpu_torch.serve`` has a
+flag for each.
 """
 
 from __future__ import annotations
@@ -41,10 +52,16 @@ DEADLINE_CLASSES = tuple(_DEFAULT_BUDGETS)
 # response), distinct from the coalescing wait budgets above: the wait
 # budget bounds how long a request may sit collecting co-tenants; the
 # request timeout bounds the whole round trip, solve included, and is
-# what the TCP client resolves to a structured ``E_TIMEOUT`` instead of
-# hanging on a stalled peer.
+# what the TCP client and the front router resolve to a structured
+# ``E_TIMEOUT`` instead of hanging on a stalled peer.
 _DEFAULT_TIMEOUTS = {"interactive": 30.0, "standard": 120.0,
                      "batch": 600.0}
+
+# The write-ahead request journal (:mod:`.durable`): the size past which
+# a segment rotates, and how many journaled requests the router's boot
+# replay re-dispatches at once.
+DEFAULT_SEGMENT_BYTES = 1 << 20
+DEFAULT_REPLAY_CONCURRENCY = 4
 
 # Structured reject/error codes.
 E_BAD_REQUEST = "bad_request"
@@ -123,17 +140,25 @@ class ServeConfig:
                 f"one of {sorted(self.budgets)}") from None
 
 
-def request_timeouts() -> dict:
-    """Per-class end-to-end request deadlines in seconds."""
-    return dict(_DEFAULT_TIMEOUTS)
+def request_timeouts(overrides=None) -> dict:
+    """Per-class end-to-end request deadlines in seconds: the defaults,
+    updated by the ``overrides`` mapping (class -> seconds), if any."""
+    out = dict(_DEFAULT_TIMEOUTS)
+    for cls, sec in (overrides or {}).items():
+        if cls not in out:
+            raise ValueError(f"unknown deadline class {cls!r}; choose "
+                             f"one of {sorted(out)}")
+        out[cls] = float(sec)
+    return out
 
 
-def request_timeout_for(deadline_class: str) -> float:
-    """The end-to-end deadline of one request of this class; unknown
+def request_timeout_for(deadline_class: str, timeouts=None) -> float:
+    """The end-to-end deadline of one request of this class under the
+    ``timeouts`` overrides (see :func:`request_timeouts`); unknown
     classes get the ``standard`` deadline (the request itself is
     validated -- and rejected -- elsewhere)."""
-    return request_timeouts().get(str(deadline_class),
-                                  _DEFAULT_TIMEOUTS["standard"])
+    table = request_timeouts(timeouts)
+    return table.get(str(deadline_class), table["standard"])
 
 
 def jsonable(obj):
@@ -177,18 +202,21 @@ def error_response(req_id, code: str, message: str, **extra) -> dict:
 
 
 def accepted_ack(req_id, key: str) -> dict:
-    """The durability ack line of a journal-backed router (the TCP
-    client counts and skips it; no port module sends one yet)."""
+    """The durability ack: written to the socket only after the
+    ``accepted`` journal record is fsynced, it promises the keyed
+    request will be answered exactly once even across router death."""
     return {"protocol": PROTOCOL, "id": req_id, "accepted": True,
             "key": key}
 
 
 def canonical_answer(resp: dict) -> str:
-    """Canonical form of a sweep answer for bitwise-identity audits (a
-    served answer against the same request's solo run, a duplicate
-    against its original): the solver-derived payload only; envelope
-    fields (``id``, ``timing``, ``pack``) legitimately differ between
-    runs and are excluded."""
+    """Canonical form of a sweep answer for bitwise-identity audits: a
+    served answer against the same request's solo run, the router's
+    duplicate-suppression audit (hedge losers, failover stragglers), the
+    journaled-answer replay audit and the chaos drill all compare this
+    string. The solver-derived payload only; envelope fields (``id``,
+    ``timing``, ``pack``) legitimately differ between duplicates and
+    are excluded."""
     return json.dumps({"result": resp.get("result"),
                        "quarantine": resp.get("quarantine"),
                        "lanes": resp.get("lanes")}, sort_keys=True)

@@ -24,9 +24,12 @@ The solver never runs on the event loop and the event loop never waits
 on the solver; backpressure is the bounded queue, not TCP. The port
 compiles no program per shape: ``pycatkin_compile_total`` counts the
 CUDA kernel library's builds and loads (the first use in a process),
-which :meth:`SweepServer.warm` does before traffic, so
-``zero_compile_rate_after_warm`` still measures flushes that paid a
-build.
+which :meth:`SweepServer.start` does on a card before it listens (and
+:meth:`SweepServer.warm` before traffic), so
+``zero_compile_rate_after_warm`` and ``flushes_with_compiles`` still
+measure flushes that paid a build or a load. ``stats()["launches"]``
+counts the kernels this process launched since :meth:`SweepServer.start`,
+so that a fleet's replicas report their own launches.
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ class SweepServer:
         self.flushes_after_warm = 0
         self.flushes_with_compiles_after_warm = 0
         self.compiles_after_warm = 0.0
+        self._launches0: dict = {}
 
     # -- boot ----------------------------------------------------------
 
@@ -139,10 +143,23 @@ class SweepServer:
 
     async def start(self, listen: bool = True) -> "SweepServer":
         """Resolve the device (raises without a CUDA card unless the
-        config says ``device="cpu"``), compute the boot manifest, start
-        the scheduler loop and (optionally) the TCP listener."""
+        config says ``device="cpu"``), load the CUDA kernel library on a
+        card (the counterpart of the JAX server's AOT pack import; raises
+        :class:`..ops.cuda_linalg.KernelError` when it does not build or
+        load), note the launch counters (:meth:`launches` counts from
+        here), compute the boot manifest, start the scheduler loop and
+        (optionally) the TCP listener."""
+        from ..ops import cuda_linalg
         from ..parallel.batch import resolve_device
-        resolve_device(self.config.device)
+        dev = resolve_device(self.config.device)
+        self._launches0 = dict(cuda_linalg.LAUNCHES_BY_SHAPE)
+        if dev.type == "cuda":
+            c0 = _compile_counts()
+            await asyncio.to_thread(cuda_linalg.load)
+            c1 = _compile_counts()
+            record_event("serve", action="kernels-loaded",
+                         compiled=c1["build"] - c0["build"],
+                         loaded=c1["load"] - c0["load"])
         self._coalescer = self._make_coalescer()
         self._wake = asyncio.Event()
         from ..obs.manifest import run_manifest
@@ -611,6 +628,18 @@ class SweepServer:
 
     # -- introspection -------------------------------------------------
 
+    def launches(self) -> list:
+        """Kernel launches of this process since :meth:`start`, as sorted
+        ``[name, n, lanes, count]`` rows (float32 names end ``_f32``);
+        none on the CPU, where the wrappers run their plain versions."""
+        from ..ops import cuda_linalg
+        rows = []
+        for key, c in cuda_linalg.LAUNCHES_BY_SHAPE.items():
+            c -= self._launches0.get(key, 0)
+            if c > 0:
+                rows.append([*key, c])
+        return sorted(rows)
+
     def stats(self) -> dict:
         co = self._coalescer
         return {
@@ -625,6 +654,7 @@ class SweepServer:
             "flushes": self.flushes,
             "flushes_with_compiles": self.flushes_with_compiles,
             "compiles_total": self.compiles_total,
+            "launches": self.launches(),
             "mean_occupancy": (self._occupancy_sum / self.flushes
                                if self.flushes else None),
             "flushes_after_warm": self.flushes_after_warm,

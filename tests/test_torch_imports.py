@@ -45,6 +45,8 @@ def test_port_has_modules_to_scan():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "pycatkin_tpu_torch/ops/cuda_linalg.py" in names
     assert "pycatkin_tpu_torch/parallel/batch.py" in names
+    for mod in ("durable", "router", "fleet"):
+        assert f"pycatkin_tpu_torch/serve/{mod}.py" in names
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():

@@ -202,8 +202,38 @@ def test_without_a_card_the_server_refuses_to_start(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         asyncio.run(SweepServer(ServeConfig()).start(listen=False))
     from pycatkin_tpu_torch.serve.__main__ import main
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--router"])
+    # The front router is ported: without the endpoints file of a fleet
+    # to route to, it refuses with a usage error instead of raising.
+    assert main(["--router"]) == 2
+
+
+def test_stats_count_the_kernel_launches_since_start():
+    # A fleet's replicas report their own launches: what the process
+    # launched before start() is not the server's. The launch itself
+    # needs the card, so the wrappers' counter is bumped directly.
+    from pycatkin_tpu_torch.ops import cuda_linalg as cl
+
+    async def scenario():
+        cl._count("lu_factor", torch.float64, 16, 12)
+        server = await _server().start(listen=False)
+        try:
+            assert server.stats()["launches"] == []
+            cl._count("lu_factor", torch.float64, 16, 12)
+            cl._count("lu_solve", torch.float32, 16, 3)
+            cl._count("lu_solve", torch.float32, 16, 3)
+            return server.stats()["launches"]
+        finally:
+            await server.stop()
+    saved = [dict(c) for c in (cl.LAUNCHES, cl.LAUNCHES_F32,
+                                cl.LAUNCHES_BY_SHAPE)]
+    try:
+        assert asyncio.run(scenario()) == [["lu_factor", 16, 12, 1],
+                                           ["lu_solve_f32", 16, 3, 2]]
+    finally:
+        cl.reset_launches()
+        for c, old in zip((cl.LAUNCHES, cl.LAUNCHES_F32,
+                           cl.LAUNCHES_BY_SHAPE), saved):
+            c.update(old)
 
 
 # -- admission ---------------------------------------------------------
